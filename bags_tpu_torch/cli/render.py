@@ -1,24 +1,29 @@
 """Rendering CLI of the port: render the train/test views of a dataset from a
-saved PLY model, write `renders/` and `gt/` PNG trees and print each
-split's PSNR. Port of the root `render.py`, its `--ply_only` path.
+trained model, write `renders/` and `gt/` PNG trees and print each split's
+PSNR. Port of the root `render.py`.
 
-    python -m bags_tpu_torch.cli.render -m MODEL -s DATASET --ply_only [--eval]
+    python -m bags_tpu_torch.cli.render -m MODEL -s DATASET [--eval]
 
-Runs on `--device cuda` (the default) or `--device cpu`. Not ported yet
-(slice 2 of the port): restoring a `chkpnt*.npz` training checkpoint with
-its optimized cameras, the fisheye eval path, and test-time pose
-optimization (`--optim_test_pose_iter > 0`).
+Loads the trained state: the full `chkpnt{it}.npz` checkpoint with its
+`cfg.json` when present (the optimized train cameras and the global
+alignment), else, or with `--ply_only`, the saved PLY with the dataset's
+cameras. `--optim_test_pose_iter N` first optimizes each test camera's pose
+(photometric, pose-only Adam) and saves / resumes `opt_test_cams.npz`. Runs
+on `--device cuda` (the default) or `--device cpu`. The fisheye and hybrid
+models of later slices raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
+import dataclasses
 import os
-import re
 
 import numpy as np
 import torch
+
+# Test-camera learning rates of the reference (scene/__init__.py:166-170).
+TEST_POSE_LR = {"dq": 5e-4, "dt": 2.5e-3}
 
 
 def save_png(path: str, img: torch.Tensor) -> None:
@@ -27,12 +32,6 @@ def save_png(path: str, img: torch.Tensor) -> None:
 
     arr = (np.clip(img.detach().cpu().numpy(), 0, 1) * 255).astype("uint8")
     Image.fromarray(arr.transpose(1, 2, 0)).save(path)
-
-
-def find_max_iteration(folder: str, pattern: str = r"iteration_(\d+)") -> int:
-    its = [int(m.group(1)) for p in glob.glob(os.path.join(folder, "*"))
-           if (m := re.search(pattern, os.path.basename(p)))]
-    return max(its) if its else -1
 
 
 def parse_args(argv=None):
@@ -50,12 +49,67 @@ def parse_args(argv=None):
                    help="instance budget per view; past it the farthest "
                         "whole Gaussians are dropped (default: no cap)")
     p.add_argument("--ply_only", action="store_true",
-                   help="render the saved PLY with the dataset's cameras")
+                   help="ignore checkpoints; render the saved PLY with the "
+                        "dataset's cameras")
     p.add_argument("--optim_test_pose_iter", type=int, default=0,
-                   help="test-time pose optimization iterations (slice 2)")
+                   help="test-time pose optimization iterations "
+                        "(reference: 7000)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     return p.parse_args(argv)
+
+
+def restore_trained(model_path: str, source_path: str, iteration: int,
+                    device):
+    """Rebuild the training-time Scene and state template from `cfg.json`
+    and restore `chkpnt{iteration}.npz` (the latest for -1) into it.
+    Returns (cfg, scene, state, it), or None without a checkpoint."""
+    from ..train.checkpoint import find_max_iteration, load_checkpoint
+    from ..train.config import TrainConfig
+    from .train import build_scene_and_trainer
+
+    cfg_path = os.path.join(model_path, "cfg.json")
+    it = iteration
+    if it == -1:
+        it = find_max_iteration(model_path, r"chkpnt(\d+)\.npz")
+    ck = os.path.join(model_path, f"chkpnt{it}.npz")
+    if not (os.path.exists(cfg_path) and os.path.exists(ck)):
+        return None
+    with open(cfg_path) as f:
+        cfg = TrainConfig.from_json(f.read())
+    cfg.model.source_path = source_path  # the data may have moved
+    cfg.mesh = 0                         # a mesh checkpoint renders on one card
+    scene, trainer = build_scene_and_trainer(cfg, device)
+    trainer.close()
+    load_checkpoint(ck, trainer.state, with_optimizer=False)
+    print(f"restored the training state from {ck}")
+    return cfg, scene, trainer.state, it
+
+
+def optimize_test_poses(render_cam, cams, scene, iters: int):
+    """Pose-only Adam on each test camera against its image; returns the
+    cameras with the optimized dq / dt."""
+    from ..train.losses import photometric_loss
+
+    new = {"dq": [], "dt": []}
+    for i in range(scene.n_test):
+        cam = cams[i]
+        leaves = {f: getattr(cam, f).detach().clone().requires_grad_(True)
+                  for f in TEST_POSE_LR}
+        opt = torch.optim.Adam(
+            [{"params": [leaves[f]], "lr": lr} for f, lr in TEST_POSE_LR.items()],
+            eps=1e-15)
+        gt = scene.test_image(i)
+        for _ in range(iters):
+            opt.zero_grad()
+            loss = photometric_loss(
+                render_cam(dataclasses.replace(cam, **leaves)), gt)
+            loss.backward()
+            opt.step()
+        for f in TEST_POSE_LR:
+            new[f].append(leaves[f].detach())
+    return dataclasses.replace(cams, dq=torch.stack(new["dq"]),
+                               dt=torch.stack(new["dt"]))
 
 
 def main(argv=None) -> dict:
@@ -66,46 +120,66 @@ def main(argv=None) -> dict:
     from ..eval.metrics import psnr
     from ..model.gaussians import load_ply
     from ..raster.render import RenderConfig, render
+    from ..train.checkpoint import find_max_iteration
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
-    if args.optim_test_pose_iter > 0:
-        raise NotImplementedError(
-            "test-time pose optimization needs the compositing backward "
-            "kernel: slice 2 of the port")
+    trained = None if args.ply_only else restore_trained(
+        args.model_path, args.source_path, args.iteration, device)
+    if trained is not None:
+        cfg_t, scene, state, it = trained
+        g, alive, align = state.g, state.alive, state.align
+        train_cams = state.cams                 # the OPTIMIZED train cameras
+        cfg = RenderConfig(sh_degree=cfg_t.model.sh_degree,
+                           max_instances=args.max_instances)
+        bg_value = 1.0 if cfg_t.model.white_background else 0.0
+    else:
+        it = args.iteration
+        if it == -1:
+            it = find_max_iteration(os.path.join(args.model_path, "point_cloud"))
+        ply = os.path.join(args.model_path, "point_cloud", f"iteration_{it}",
+                           "point_cloud.ply")
+        g, alive = load_ply(ply, device=device)
+        print(f"loaded {int(alive.sum())} Gaussians from {ply}")
+        scene = Scene(args.source_path, eval_split=args.eval,
+                      resolution=args.resolution,
+                      white_background=args.white_background,
+                      sh_degree=args.sh_degree, device=device)
+        train_cams, align = scene.train_cams, None
+        cfg = RenderConfig(sh_degree=args.sh_degree,
+                           max_instances=args.max_instances)
+        bg_value = 1.0 if args.white_background else 0.0
+    bg = torch.full((3,), bg_value, device=device)
+    with torch.no_grad():
+        scaling, quats = g.scaling(), g.quats.detach()
+        xyz, opacity, sh = g.xyz.detach(), g.opacity(alive), g.sh_coeffs()
 
-    it = args.iteration
-    if it == -1:
-        it = find_max_iteration(os.path.join(args.model_path, "point_cloud"))
-    ply = os.path.join(args.model_path, "point_cloud", f"iteration_{it}",
-                       "point_cloud.ply")
-    if not args.ply_only and find_max_iteration(
-            args.model_path, r"chkpnt(\d+)\.npz") >= 0:
-        if not os.path.exists(ply):
-            raise NotImplementedError(
-                f"only a training checkpoint in {args.model_path}: checkpoint "
-                "restore is not ported yet (slice 2); pass a PLY model")
-        print("checkpoint restore is not ported yet (slice 2): rendering the "
-              "saved PLY with the dataset's cameras, as --ply_only")
-    g, alive = load_ply(ply, device=device)
-    print(f"loaded {int(alive.sum())} Gaussians from {ply}")
-    scene = Scene(args.source_path, eval_split=args.eval,
-                  resolution=args.resolution,
-                  white_background=args.white_background,
-                  sh_degree=args.sh_degree, device=device)
-    static = scene.static
-    cfg = RenderConfig(sh_degree=args.sh_degree,
-                       max_instances=args.max_instances)
-    bg = torch.full((3,), 1.0 if args.white_background else 0.0, device=device)
-    scaling, quats = g.scaling(), g.quats
-    opacity, sh = g.opacity(alive), g.sh_coeffs()
+    def render_cam(cam):
+        return render(xyz, scaling, quats, opacity, sh, cam, scene.static,
+                      cfg, bg=bg, align=align)
+
+    test_cams = scene.test_cams
+    opt_cam_path = os.path.join(args.model_path, "opt_test_cams.npz")
+    if args.optim_test_pose_iter > 0 and os.path.exists(opt_cam_path):
+        saved = np.load(opt_cam_path)
+        test_cams = dataclasses.replace(
+            test_cams, dq=torch.as_tensor(saved["dq"], device=device),
+            dt=torch.as_tensor(saved["dt"], device=device))
+        print(f"loaded optimized test poses from {opt_cam_path}")
+    elif args.optim_test_pose_iter > 0:
+        print(f"test-time pose optimization ({args.optim_test_pose_iter} iters)")
+        test_cams = optimize_test_poses(lambda c: render_cam(c).render,
+                                        test_cams, scene,
+                                        args.optim_test_pose_iter)
+        np.savez(opt_cam_path, dq=test_cams.dq.cpu().numpy(),
+                 dt=test_cams.dt.cpu().numpy())
+        print(f"saved optimized test poses to {opt_cam_path}")
 
     jobs = []
     if not args.skip_test:
-        jobs.append(("test", scene.test_cams, scene.n_test, scene.test_image))
+        jobs.append(("test", test_cams, scene.n_test, scene.test_image))
     if not args.skip_train:
-        jobs.append(("train", scene.train_cams, scene.n_train,
-                     scene.train_image))
+        jobs.append(("train", train_cams, scene.n_train, scene.train_image))
     summary = {}
     with torch.no_grad():
         for split, cams, n, gt_fn in jobs:
@@ -114,8 +188,7 @@ def main(argv=None) -> dict:
             os.makedirs(os.path.join(out_dir, "gt"), exist_ok=True)
             vals = []
             for i in range(n):
-                out = render(g.xyz, scaling, quats, opacity, sh, cams[i],
-                             static, cfg, bg=bg)
+                out = render_cam(cams[i])
                 if out.n_dropped:
                     print(f"{split} view {i}: dropped {out.n_dropped} "
                           f"instances past --max_instances")

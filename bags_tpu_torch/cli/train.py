@@ -1,0 +1,361 @@
+"""Training CLI of the port: single-device 3DGS training that also optimises
+the camera poses. Port of the root `train.py`, with its flags and presets.
+
+    python -m bags_tpu_torch.cli.train -s DATASET -m MODEL --preset pose_noise
+
+Writes `cfg.json`, `point_cloud/iteration_{it}/point_cloud.ply` at
+`--save_iterations`, `chkpnt{it}.npz` at `--checkpoint_iterations`,
+`metrics.jsonl` every 10 iterations and `evaluation_results.txt` at
+`--test_iterations` (the test split and the first 5 train views: L1, PSNR,
+SSIM, LPIPS n/a, and with `--opt_cam` the pose error). `--start_checkpoint`
+resumes. Runs on `--device cuda` (the default) or `--device cpu`. The lens
+calibration, MCMC, hybrid, multi-GPU and batched-camera paths are later
+slices of the port and raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Switches of paths this slice has not ported -> their ROADMAP.md item.
+UNPORTED = {
+    "outside_rasterizer": "Queue 1 #9, slice 3 (lens calibration)",
+    "opt_distortion": "Queue 1 #9, slice 3 (lens calibration)",
+    "cubemap": "Queue 1 #10, slice 3 (lens calibration)",
+    "mcmc": "Queue 1 #12, slice 4 (MCMC)",
+    "hybrid": "Queue 1 #12, slice 4 (hybrid specular)",
+    "gui": "Queue 1 #13, slice 4 (network viewer)",
+    "vis_pose": "Queue 1 #13, slice 4 (pose plots)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    # ModelParams
+    p.add_argument("--source_path", "-s", required=True)
+    p.add_argument("--model_path", "-m", default="output/run")
+    p.add_argument("--images", "-i", default="images")
+    p.add_argument("--resolution", "-r", type=int, default=-1)
+    p.add_argument("--white_background", "-w", action="store_true")
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--sh_degree", type=int, default=3)
+    p.add_argument("--cap_max", type=int, default=-1)
+    p.add_argument("--init_type", default="sfm")
+    p.add_argument("--num_init_points", type=int, default=100_000)
+    # OptimizationParams
+    p.add_argument("--iterations", type=int, default=30_000)
+    p.add_argument("--position_lr_init", type=float, default=0.00016)
+    p.add_argument("--position_lr_final", type=float, default=0.0000016)
+    p.add_argument("--feature_lr", type=float, default=0.0025)
+    p.add_argument("--opacity_lr", type=float, default=0.05)
+    p.add_argument("--scaling_lr", type=float, default=0.005)
+    p.add_argument("--rotation_lr", type=float, default=0.001)
+    p.add_argument("--percent_dense", type=float, default=0.01)
+    p.add_argument("--lambda_dssim", type=float, default=0.2)
+    p.add_argument("--densification_interval", type=int, default=100)
+    p.add_argument("--opacity_reset_interval", type=int, default=3000)
+    p.add_argument("--densify_from_iter", type=int, default=500)
+    p.add_argument("--densify_until_iter", type=int, default=15_000)
+    p.add_argument("--densify_grad_threshold", type=float, default=0.0002)
+    p.add_argument("--abs_densify_grad_threshold", type=float, default=0.0004)
+    p.add_argument("--batch_cams", type=int, default=1,
+                   help="training views per iteration; only 1 is ported")
+    # calibration / pose flags
+    p.add_argument("--opt_cam", action="store_true")
+    p.add_argument("--opt_intrinsic", action="store_true")
+    p.add_argument("--r_t_lr", nargs="+", type=float, default=[0.01, 0.01])
+    p.add_argument("--r_t_noise", nargs="+", type=float, default=[0.0, 0.0, 1.0])
+    p.add_argument("--global_alignment_lr", type=float, default=0.01)
+    p.add_argument("--opt_global_alignment", action="store_true")
+    p.add_argument("--opt_distortion", action="store_true")
+    p.add_argument("--outside_rasterizer", action="store_true")
+    p.add_argument("--apply2gt", action="store_true")
+    p.add_argument("--flow_scale", nargs="+", type=float, default=[1.0, 1.0])
+    p.add_argument("--render_resolution", type=float, default=1.0)
+    p.add_argument("--control_point_sample_scale", type=float, default=8.0)
+    p.add_argument("--iresnet_lr", type=float, default=1e-7)
+    p.add_argument("--iresnet_opt_duration", nargs="+", type=int,
+                   default=[0, 30000])
+    p.add_argument("--no_init_iresnet", action="store_true")
+    p.add_argument("--no_distortion_mask", action="store_true")
+    p.add_argument("--start_vignetting", type=int, default=10_000_000_000)
+    p.add_argument("--opt_shift", action="store_true")
+    p.add_argument("--cubemap", action="store_true")
+    p.add_argument("--mask_radius", type=int, default=512)
+    p.add_argument("--abs_grad", action="store_true")
+    p.add_argument("--opacity_threshold", type=float, default=0.005)
+    p.add_argument("--mcmc", action="store_true")
+    p.add_argument("--hybrid", action="store_true")
+    p.add_argument("--random_init_pc", action="store_true")
+    # cadence
+    p.add_argument("--test_iterations", nargs="+", type=int,
+                   default=[7000, 30000])
+    p.add_argument("--save_iterations", nargs="+", type=int,
+                   default=[7000, 30000])
+    p.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                   default=[7000, 15000, 30000])
+    p.add_argument("--start_checkpoint", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    port_note = ("accepted so that JAX command lines run unchanged: the port "
+                 "always composites in float32 with no instance budget")
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "pallas", "jnp"], help=port_note)
+    p.add_argument("--precision", default="fast",
+                   choices=["fast", "exact"], help=port_note)
+    p.add_argument("--max_instances", type=int, default=0, help=port_note)
+    p.add_argument("--mesh", type=int, default=0,
+                   help="multi-device training; only 0 is ported")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--preset", default=None,
+                   help="named hyperparameter preset (train/presets.py)")
+    p.add_argument("--gui", action="store_true")
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=6009)
+    p.add_argument("--vis_pose", action="store_true")
+    p.add_argument("--visdom_server", default="localhost")
+    p.add_argument("--visdom_port", type=int, default=8600)
+    p.add_argument("--wandb_project_name", default=None,
+                   help="the wandb mirror is not ported; metrics.jsonl is "
+                        "always written")
+    p.add_argument("--wandb_group_name", default=None)
+    p.add_argument("--wandb_mode", default="online")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    return p
+
+
+def args_to_config(args):
+    from ..train.config import (CalibConfig, ModelConfig, OptimizationConfig,
+                                TrainConfig)
+
+    return TrainConfig(
+        model=ModelConfig(
+            sh_degree=args.sh_degree, source_path=args.source_path,
+            model_path=args.model_path, images=args.images,
+            resolution=args.resolution,
+            white_background=args.white_background, eval=args.eval,
+            cap_max=args.cap_max, init_type=args.init_type,
+            num_init_points=args.num_init_points),
+        opt=OptimizationConfig(
+            iterations=args.iterations,
+            position_lr_init=args.position_lr_init,
+            position_lr_final=args.position_lr_final,
+            feature_lr=args.feature_lr, opacity_lr=args.opacity_lr,
+            scaling_lr=args.scaling_lr, rotation_lr=args.rotation_lr,
+            percent_dense=args.percent_dense,
+            lambda_dssim=args.lambda_dssim,
+            densification_interval=args.densification_interval,
+            opacity_reset_interval=args.opacity_reset_interval,
+            densify_from_iter=args.densify_from_iter,
+            densify_until_iter=args.densify_until_iter,
+            densify_grad_threshold=args.densify_grad_threshold,
+            abs_densify_grad_threshold=args.abs_densify_grad_threshold,
+            batch_cams=args.batch_cams),
+        calib=CalibConfig(
+            opt_cam=args.opt_cam, opt_intrinsic=args.opt_intrinsic,
+            r_t_lr=tuple(args.r_t_lr[:2]),
+            r_t_noise=tuple(args.r_t_noise),
+            global_alignment_lr=args.global_alignment_lr,
+            opt_global_alignment=args.opt_global_alignment,
+            opt_distortion=args.opt_distortion,
+            outside_rasterizer=args.outside_rasterizer,
+            apply2gt=args.apply2gt, flow_scale=tuple(args.flow_scale),
+            render_resolution=args.render_resolution,
+            control_point_sample_scale=args.control_point_sample_scale,
+            iresnet_lr=args.iresnet_lr,
+            iresnet_opt_duration=tuple(args.iresnet_opt_duration),
+            no_init_iresnet=args.no_init_iresnet,
+            no_distortion_mask=args.no_distortion_mask,
+            start_vignetting=args.start_vignetting,
+            opt_shift=args.opt_shift, cubemap=args.cubemap,
+            mask_radius=args.mask_radius, hybrid=args.hybrid),
+        abs_grad=args.abs_grad, opacity_threshold=args.opacity_threshold,
+        mcmc=args.mcmc, random_init_pc=args.random_init_pc,
+        test_iterations=tuple(args.test_iterations),
+        save_iterations=tuple(args.save_iterations),
+        checkpoint_iterations=tuple(args.checkpoint_iterations),
+        max_instances=args.max_instances, seed=args.seed,
+        mesh=args.mesh, precision=args.precision,
+    )
+
+
+def _refuse(name: str):
+    raise NotImplementedError(
+        f"--{name} is not ported yet: ROADMAP.md {UNPORTED[name]}")
+
+
+def check_ported(cfg) -> None:
+    """Raise NotImplementedError for a configuration that takes a path this
+    slice of the port does not have, naming its ROADMAP.md item."""
+    flags = {"outside_rasterizer": cfg.calib.outside_rasterizer,
+             "opt_distortion": cfg.calib.opt_distortion,
+             "cubemap": cfg.calib.cubemap, "mcmc": cfg.mcmc,
+             "hybrid": cfg.calib.hybrid}
+    for name, value in flags.items():
+        if value:
+            _refuse(name)
+    if cfg.mesh > 0:
+        raise NotImplementedError("--mesh > 0 is not ported yet: ROADMAP.md "
+                                  "Queue 1 #14, slice 4 (multi-GPU)")
+    if cfg.opt.batch_cams > 1:
+        raise NotImplementedError("--batch_cams > 1 is not ported yet: "
+                                  "ROADMAP.md Queue 1, slice 4")
+
+
+def build_scene_and_trainer(cfg, device):
+    """The Scene and Trainer exactly as training builds them from a
+    (possibly cfg.json-restored) TrainConfig; the render CLI rebuilds its
+    checkpoint template with it."""
+    from ..data.scene import Scene
+    from ..raster.render import RenderConfig
+    from ..train.loop import Trainer
+
+    check_ported(cfg)
+    scene = Scene(cfg.model.source_path, eval_split=cfg.model.eval,
+                  resolution=cfg.model.resolution,
+                  r_t_noise=tuple(cfg.calib.r_t_noise),
+                  white_background=cfg.model.white_background,
+                  capacity=cfg.model.cap_max if cfg.model.cap_max > 0 else None,
+                  sh_degree=cfg.model.sh_degree, images_dir=cfg.model.images,
+                  init_type=("random" if cfg.random_init_pc
+                             else cfg.model.init_type),
+                  num_pts=cfg.model.num_init_points, device=device)
+    trainer = Trainer(scene.gaussians, scene.alive, scene.train_cams,
+                      scene.static, cfg, scene_extent=scene.cameras_extent,
+                      gt_images=scene.train_image,
+                      rcfg=RenderConfig(sh_degree=cfg.model.sh_degree),
+                      seed=cfg.seed)
+    return scene, trainer
+
+
+def main(argv=None) -> dict:
+    """Run the CLI. Returns {"losses": [...] and "step_s": [...] (host
+    seconds of the iteration, its evaluation and saving left out) per
+    iteration, "densify": [(it, cloned, split, pruned, alive_before,
+    alive_after)], "eval": the evaluation lines, "eval_renders": the views
+    evaluation rendered, "model_path": ...}."""
+    from ..train.presets import apply_preset
+
+    argv = apply_preset(list(argv if argv is not None else sys.argv[1:]))
+    args = build_parser().parse_args(argv)
+    for name in ("gui", "vis_pose"):
+        if getattr(args, name):
+            _refuse(name)
+    if args.wandb_project_name is not None:
+        print("the wandb mirror is not ported: metrics go to metrics.jsonl")
+    cfg = args_to_config(args)
+    check_ported(cfg)
+
+    from ..eval.metrics import psnr
+    from ..eval.pose_eval import align_and_pose_error
+    from ..model.gaussians import save_ply
+    from ..raster.render import RenderConfig, render
+    from ..train.checkpoint import load_checkpoint, save_checkpoint
+    from ..train.losses import ssim
+    from ..utils.device import resolve_device
+    from ..utils.logging import MetricsLogger
+    from .render import save_png
+
+    device = resolve_device(args.device)
+    os.makedirs(args.model_path, exist_ok=True)
+    with open(os.path.join(args.model_path, "cfg.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    scene, trainer = build_scene_and_trainer(cfg, device)
+    print(f"scene: {scene.n_train} train / {scene.n_test} test cameras, "
+          f"extent {scene.cameras_extent:.3f}, capacity "
+          f"{trainer.state.capacity}, alive {int(trainer.state.alive.sum())}, "
+          f"size {scene.static.width}x{scene.static.height}, device {device}")
+    if args.start_checkpoint:
+        load_checkpoint(args.start_checkpoint, trainer.state)
+        print(f"resumed from {args.start_checkpoint} at step "
+              f"{trainer.state.step}")
+
+    logger = MetricsLogger(args.model_path)
+    eval_file = os.path.join(args.model_path, "evaluation_results.txt")
+    summary = {"losses": [], "step_s": [], "densify": trainer.densify_log,
+               "eval": [], "eval_renders": 0, "model_path": args.model_path}
+
+    @torch.no_grad()
+    def evaluate(it):
+        st = trainer.state
+        ecfg = RenderConfig(sh_degree=trainer.active_sh_degree)
+        g = st.g
+        lines, img = [], None
+        for split, cams, gt_fn, n in (
+                ("test", scene.test_cams, scene.test_image, scene.n_test),
+                ("train", st.cams, scene.train_image, min(5, scene.n_train))):
+            l1s, psnrs, ssims = [], [], []
+            for i in range(n):
+                out = render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
+                             g.sh_coeffs(), cams[i], scene.static, ecfg,
+                             bg=trainer.bg, align=st.align)
+                summary["eval_renders"] += 1
+                img = torch.clamp(out.render, 0.0, 1.0)
+                gt_img = gt_fn(i)
+                l1s.append(float(torch.mean(torch.abs(img - gt_img))))
+                psnrs.append(float(psnr(img, gt_img)))
+                ssims.append(float(ssim(img, gt_img)))
+            if l1s:
+                lines.append(f"[ITER {it}] Evaluating {split}: "
+                             f"L1 {np.mean(l1s):.5f} PSNR {np.mean(psnrs):.3f} "
+                             f"SSIM {np.mean(ssims):.5f} LPIPS n/a")
+        if img is not None:
+            save_png(os.path.join(args.model_path, f"render_{it}.png"), img)
+        if args.opt_cam:
+            _, err = align_and_pose_error(st.cams, scene.train_cams_clean)
+            lines.append(f"[ITER {it}] pose error: "
+                         f"rot {err['rotation_deg_mean']:.4f} deg, "
+                         f"trans {err['translation_mean']:.5f}")
+        for line in lines:
+            print(line)
+        with open(eval_file, "a") as f:
+            f.write("\n".join(lines) + "\n")
+        summary["eval"].extend(lines)
+
+    last = [time.perf_counter()]
+
+    def callback(it, state, metrics):
+        summary["losses"].append(float(metrics.loss))   # waits for the step
+        now = time.perf_counter()
+        summary["step_s"].append(now - last[0])
+        if it % 10 == 0:
+            logger.log(it, loss=metrics.loss, l1=metrics.l1,
+                       n_alive=metrics.n_alive, n_dropped=metrics.n_dropped)
+        if not args.quiet and it % 200 == 0:
+            print(f"iter {it}: loss {summary['losses'][-1]:.5f}, "
+                  f"alive {int(metrics.n_alive)}", flush=True)
+        if it in cfg.test_iterations:
+            evaluate(it)
+        if it in cfg.save_iterations:
+            ply_dir = os.path.join(args.model_path, "point_cloud",
+                                   f"iteration_{it}")
+            os.makedirs(ply_dir, exist_ok=True)
+            save_ply(os.path.join(ply_dir, "point_cloud.ply"), state.g,
+                     state.alive)
+        if it in cfg.checkpoint_iterations:
+            save_checkpoint(os.path.join(args.model_path, f"chkpnt{it}.npz"),
+                            state)
+        last[0] = time.perf_counter()
+
+    try:
+        trainer.run(iterations=args.iterations, callback=callback)
+    finally:
+        trainer.close()
+        logger.close()
+    for it, cloned, split, pruned, before, after in trainer.densify_log:
+        print(f"[ITER {it}] densify: cloned {cloned}, split {split}, pruned "
+              f"{pruned}, alive {before} -> {after}")
+    print("\nTraining complete.")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

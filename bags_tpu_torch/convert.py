@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .core.camera import CameraParams
+from .model.densify import DensifyStats
 from .model.gaussians import Gaussians
 from .utils.device import resolve_device
 
@@ -43,3 +44,9 @@ def gaussians_from_numpy(d: Mapping[str, np.ndarray], device=None
 def camera_from_numpy(d: Mapping[str, np.ndarray], device=None) -> CameraParams:
     """{q_init, t_init, dq, dt, fovx, fovy} -> CameraParams."""
     return CameraParams(**_fields(CameraParams, d, resolve_device(device)))
+
+
+def densify_stats_from_numpy(d: Mapping[str, np.ndarray], device=None
+                             ) -> DensifyStats:
+    """{grad_accum, grad_accum_abs, denom, max_radii2d} -> DensifyStats."""
+    return DensifyStats(**_fields(DensifyStats, d, resolve_device(device)))

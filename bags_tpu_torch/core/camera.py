@@ -88,6 +88,13 @@ class GlobalAlignment:
     def rotation(self) -> torch.Tensor:
         return quat_to_rotmat(self.quaternion)
 
+    @staticmethod
+    def identity(device=None) -> "GlobalAlignment":
+        dev = resolve_device(device)
+        return GlobalAlignment(
+            quaternion=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+            log_scale=torch.zeros((), device=dev))
+
 
 def pose_w2c(cam: CameraParams, align: GlobalAlignment | None = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,19 +92,23 @@ class Scene:
 
     def __init__(self, source_path: str, eval_split: bool = False,
                  resolution: int = -1, r_t_noise=(0.0, 0.0, 1.0),
-                 white_background: bool = False, sh_degree: int = 3,
-                 device=None):
+                 white_background: bool = False,
+                 capacity: Optional[int] = None, sh_degree: int = 3,
+                 images_dir: str = "images", init_type: str = "sfm",
+                 noise_seed: int = 55, num_pts: int = 100_000, device=None):
         self.device = resolve_device(device)
         self.info: SceneInfo = load_scene_info(
-            source_path, eval_split=eval_split,
-            white_background=white_background)
+            source_path, eval_split=eval_split, images_dir=images_dir,
+            white_background=white_background, init_type=init_type,
+            num_pts=num_pts)
         self.cameras_extent = float(self.info.nerf_normalization["radius"])
         self.white_background = white_background
         self.resolution = resolution
 
         # noise-free copies retained for pose eval
         self.train_infos_clean = list(self.info.train_cameras)
-        self.train_infos = inject_noise(self.info.train_cameras, r_t_noise)
+        self.train_infos = inject_noise(self.info.train_cameras, r_t_noise,
+                                        noise_seed)
         self.test_infos = list(self.info.test_cameras) or [self.train_infos[0]]
 
         sizes = {resolve_resolution(c.width, c.height, resolution)
@@ -121,7 +125,8 @@ class Scene:
 
         pcd = self.info.point_cloud
         n_pts = len(pcd.points)
-        cap = max(2 ** int(np.ceil(np.log2(max(n_pts, 1) * 4))), 1024)
+        cap = capacity or max(2 ** int(np.ceil(np.log2(max(n_pts, 1) * 4))),
+                              1024)
         self.gaussians, self.alive = create_from_points(
             pcd.points, pcd.colors, cap, sh_degree, device=self.device)
         self._cache: Dict[Tuple[str, int], np.ndarray] = {}

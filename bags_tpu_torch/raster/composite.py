@@ -1,16 +1,21 @@
-"""Forward compositing: the CUDA kernel's wrapper, build and launch count.
+"""Tile compositing: the CUDA kernels' wrappers, build and launch counts.
 
 `composite_fwd` is the port of the TPU kernel
-`bags_tpu/raster/pallas_raster.py::_fwd_kernel` (via `_composite_fwd_call`).
-For a CUDA tensor it launches the hand-written kernel
-`bags_tpu_torch/csrc/composite_fwd.cu`, or raises; for a CPU tensor it runs
-the plain PyTorch version `tiles.composite_tiles_plain`. It never falls back
-from the kernel to the plain version.
+`bags_tpu/raster/pallas_raster.py::_fwd_kernel` (via `_composite_fwd_call`)
+and `composite_bwd` the port of its backward `_bwd_kernel` (via
+`composite_bwd_padded` and `_composite_core_bwd`). For CUDA tensors they
+launch the hand-written kernels `bags_tpu_torch/csrc/composite_fwd.cu` and
+`csrc/composite_bwd.cu`, or raise; for CPU tensors they run the plain
+PyTorch versions `tiles.composite_tiles_plain` and
+`tiles.composite_bwd_plain`. They never fall back from a kernel to its plain
+version.
 
-The kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C entry point, at first use, into `build/` at the repository root,
-and loaded with ctypes. Its backward is slice 2 of the port: on the card,
-the gradient raises; on the CPU, autograd differentiates the plain version.
+The kernels are compiled with nvcc for sm_90a into shared libraries with a
+plain C entry point, at first use, into `build/` at the repository root (one
+nvcc process per source, all started together), and loaded with ctypes. On
+the card `composite_fwd` is differentiable through `_CompositeFwd`, whose
+backward launches the backward kernel; on the CPU autograd differentiates
+the plain forward.
 """
 
 from __future__ import annotations
@@ -20,21 +25,33 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
 
-from .tiles import F_ACTIVE, NPIX, composite_tiles_plain
+from .tiles import F_ACTIVE, NPIX, composite_bwd_plain, composite_tiles_plain
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "composite_fwd.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"composite_fwd": CSRC / "composite_fwd.cu",
+           "composite_bwd": CSRC / "composite_bwd.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# Kernel launches made through `composite_fwd` in this process.
-launches = 0
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_ARGTYPES = {
+    "composite_fwd": [_P, _I64, _P, _P, _I, _I, _P, _P, _P],
+    "composite_bwd": [_P, _I64, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+}
 
-_lib = None
+# Kernel launches made through `composite_fwd` / `composite_bwd` in this
+# process.
+fwd_launches = 0
+bwd_launches = 0
+
+_libs: dict = {}
+build_log: dict = {}
 
 
 def _nvcc() -> str:
@@ -46,35 +63,55 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def build() -> Path:
-    """Compile the kernel (once per source content) and return the .so path."""
-    src = SOURCE.read_bytes()
+def _out_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"composite_fwd_{tag}.so"
-    if not out.exists():
+    return BUILD_DIR / f"{name}_{tag}.so"
+
+
+def build(names=tuple(SOURCES)) -> dict:
+    """Compile the kernels `names` (once per source content), one nvcc
+    process per source, all started together. Returns {name: .so path};
+    `build_log[name]` gets the seconds from the start to that compiler's
+    exit and ptxas's register / shared-memory report."""
+    outs = {name: _out_path(name) for name in names}
+    procs = {}
+    start = time.perf_counter()
+    for name, out in outs.items():
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, out)
-    return out
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    while procs:
+        for name, (cmd, tmp, proc) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[name]
+            stdout, stderr = proc.communicate()
+            build_log[name] = (time.perf_counter() - start, stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+            else:
+                os.replace(tmp, outs[name])
+        time.sleep(0.02)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.composite_fwd_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+def _load(name: str):
+    if name not in _libs:
+        lib = ctypes.CDLL(str(build((name,))[name]))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = fn
+    return _libs[name]
 
 
 def _check(rows, tile_start, tile_count, tiles_x, tiles_y):
@@ -91,11 +128,28 @@ def _check(rows, tile_start, tile_count, tiles_x, tiles_y):
     if not (rows.is_contiguous() and tile_start.is_contiguous()
             and tile_count.is_contiguous()):
         raise ValueError("rows, tile_start and tile_count must be contiguous")
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"compositing runs on cuda or cpu, not {rows.device}")
 
 
-def _launch(rows, tile_start, tile_count, tiles_x, tiles_y):
-    global launches
-    lib = _load()
+def _check_pixels(rows, num_tiles, **tensors):
+    """Per-pixel tensors of the backward: float32, contiguous, on the device
+    of rows, shaped (T, 4, 256) for colour-like and (T, 256) for the rest."""
+    for name, x in tensors.items():
+        shape = ((num_tiles, 4, NPIX) if name in ("g_color", "color")
+                 else (num_tiles, NPIX))
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be float32 {shape}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != rows.device:
+            raise ValueError(f"{name} on {x.device}, rows on {rows.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y):
+    global fwd_launches
+    fn = _load("composite_fwd")
     num_tiles = tiles_x * tiles_y
     color = torch.empty((num_tiles, 4, NPIX), dtype=torch.float32,
                         device=rows.device)
@@ -103,24 +157,55 @@ def _launch(rows, tile_start, tile_count, tiles_x, tiles_y):
                           device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.composite_fwd_launch(
-            rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
-            tile_count.data_ptr(), tiles_x, num_tiles, color.data_ptr(),
-            t_final.data_ptr(), stream)
+        err = fn(rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
+                 tile_count.data_ptr(), tiles_x, num_tiles, color.data_ptr(),
+                 t_final.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: cudaError {err}")
-    launches += 1
+    fwd_launches += 1
     return color, t_final
+
+
+def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
+                color, t_final):
+    global bwd_launches
+    fn = _load("composite_bwd")
+    num_tiles = tiles_x * tiles_y
+    d_rows = torch.zeros((F_ACTIVE, rows.shape[1]), dtype=torch.float32,
+                         device=rows.device)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
+                 tile_count.data_ptr(), tiles_x, num_tiles, g_color.data_ptr(),
+                 g_t.data_ptr(), color.data_ptr(), t_final.data_ptr(),
+                 d_rows.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: cudaError {err}")
+    bwd_launches += 1
+    return d_rows
 
 
 class _CompositeFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, tile_start, tile_count, tiles_x, tiles_y):
-        return _launch(rows, tile_start, tile_count, tiles_x, tiles_y)
+        color, t_final = _launch_fwd(rows, tile_start, tile_count, tiles_x,
+                                     tiles_y)
+        ctx.save_for_backward(rows, tile_start, tile_count, color, t_final)
+        ctx.tiles = (tiles_x, tiles_y)
+        return color, t_final
 
     @staticmethod
     def backward(ctx, g_color, g_t):
-        raise NotImplementedError("composite backward kernel: slice 2")
+        rows, tile_start, tile_count, color, t_final = ctx.saved_tensors
+        g_color = (torch.zeros_like(color) if g_color is None
+                   else g_color.contiguous())
+        g_t = torch.zeros_like(t_final) if g_t is None else g_t.contiguous()
+        d_rows = composite_bwd(rows, tile_start, tile_count, *ctx.tiles,
+                               g_color, g_t, color, t_final)
+        if rows.shape[0] > F_ACTIVE:
+            d_rows = torch.cat([d_rows, d_rows.new_zeros(
+                (rows.shape[0] - F_ACTIVE, rows.shape[1]))])
+        return d_rows, None, None, None, None
 
 
 def composite_fwd(rows: torch.Tensor, tile_start: torch.Tensor,
@@ -136,6 +221,24 @@ def composite_fwd(rows: torch.Tensor, tile_start: torch.Tensor,
     if rows.device.type == "cpu":
         return composite_tiles_plain(rows, tile_start, tile_count,
                                      tiles_x, tiles_y)
-    if rows.device.type != "cuda":
-        raise ValueError(f"composite_fwd runs on cuda or cpu, not {rows.device}")
     return _CompositeFwd.apply(rows, tile_start, tile_count, tiles_x, tiles_y)
+
+
+def composite_bwd(rows: torch.Tensor, tile_start: torch.Tensor,
+                  tile_count: torch.Tensor, tiles_x: int, tiles_y: int,
+                  g_color: torch.Tensor, g_t: torch.Tensor,
+                  color: torch.Tensor, t_final: torch.Tensor) -> torch.Tensor:
+    """Per-instance gradients of the compositing.
+
+    rows, tile_start, tile_count: as `composite_fwd`; color (T, 4, 256) and
+    t_final (T, 256): its outputs; g_color, g_t: their cotangents. Returns
+    d_rows (10, M) float32 in slot order (mx my ca cb cc o r g b depth).
+    """
+    _check(rows, tile_start, tile_count, tiles_x, tiles_y)
+    _check_pixels(rows, tiles_x * tiles_y, g_color=g_color, g_t=g_t,
+                  color=color, t_final=t_final)
+    if rows.device.type == "cpu":
+        return composite_bwd_plain(rows, tile_start, tile_count, tiles_x,
+                                   tiles_y, g_color, g_t, color, t_final)
+    return _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y,
+                       g_color, g_t, color, t_final)

@@ -4,14 +4,16 @@
   * projection and SH colour: `core/projection.py`, elementwise over N;
   * binning: `binning.py`, one int64-key sort, dynamic instance count;
   * gather: one column gather of the feature-major (10, N) packet table by
-    the per-slot Gaussian id;
-  * compositing: `composite.composite_fwd`, the CUDA kernel on the card and
-    its plain version on the CPU;
+    the per-slot Gaussian id; its backward reduces the per-instance
+    gradients to Gaussians with one `index_add_` (the JAX package's MXU
+    segment sum, `raster/segsum.py`, is not ported);
+  * compositing: `composite.composite_fwd`, the CUDA kernels (forward and
+    backward) on the card and the plain version on the CPU;
   * the background blend stays outside the kernel.
 
-The backward of the compositing kernel is slice 2 of the port, so on the
-card render() is forward-only; on the CPU autograd runs through the plain
-compositor, and `probe2d` gives the per-Gaussian screen-space gradient.
+`probe2d` gives the per-Gaussian signed screen-space gradient and
+`abs_probe` the per-Gaussian sum of |per-instance screen gradient| (the
+densification statistics).
 """
 
 from __future__ import annotations
@@ -56,6 +58,38 @@ def build_packet_table(proj: Projected, x2d: torch.Tensor,
                         proj.depth], dim=0)
 
 
+class _GatherRowsAbs(torch.autograd.Function):
+    """Column gather whose backward also harvests the abs channel: the
+    per-Gaussian sums of |d mx| and |d my| over the Gaussian's instances
+    (the fork's `means2D_densify`), in the same `index_add_` pass."""
+
+    @staticmethod
+    def forward(ctx, table, abs_probe, gauss_id):
+        ctx.save_for_backward(gauss_id)
+        ctx.n = table.shape[1]
+        return table.index_select(1, gauss_id)
+
+    @staticmethod
+    def backward(ctx, d_rows):
+        (gauss_id,) = ctx.saved_tensors
+        aug = torch.cat([d_rows, d_rows[0:2].abs()])                  # (12, M)
+        by_gauss = aug.new_zeros((aug.shape[0], ctx.n)).index_add_(
+            1, gauss_id, aug)
+        return by_gauss[:-2], by_gauss[-2:].t(), None
+
+
+def gather_rows(table: torch.Tensor, abs_probe: Optional[torch.Tensor],
+                gauss_id: torch.Tensor) -> torch.Tensor:
+    """(10, N) packet table -> (10, M) instance rows by `gauss_id`.
+
+    abs_probe (N, 2) or None: inert in the forward; its gradient is the
+    per-Gaussian sum of |d row[0:2]|. None keeps the plain `index_select`.
+    """
+    if abs_probe is None:
+        return table.index_select(1, gauss_id)
+    return _GatherRowsAbs.apply(table, abs_probe, gauss_id)
+
+
 def render(
     xyz: torch.Tensor,
     scales: torch.Tensor,
@@ -68,12 +102,15 @@ def render(
     bg: Optional[torch.Tensor] = None,
     align: Optional[GlobalAlignment] = None,
     probe2d: Optional[torch.Tensor] = None,
+    abs_probe: Optional[torch.Tensor] = None,
     extra_color: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Render one camera view on the device of `xyz`.
 
     probe2d: optional (N, 2) zeros added to the projected means; its
     gradient is the per-Gaussian signed screen-space gradient sum.
+    abs_probe: optional (N, 2) zeros; its gradient is the per-Gaussian sum
+    of per-instance |screen gradients|.
     """
     if bg is None:
         bg = xyz.new_zeros(3)
@@ -93,7 +130,8 @@ def render(
         dataclasses.replace(proj, x2d=x2d, y2d=y2d).detach(),
         tiles_x, tiles_y, cfg.max_instances, sort_key_depth=sort_key)
 
-    rows = build_packet_table(proj, x2d, y2d).index_select(1, bins.gauss_id)
+    rows = gather_rows(build_packet_table(proj, x2d, y2d), abs_probe,
+                       bins.gauss_id)
     color4, t_final = composite_fwd(rows, bins.tile_start, bins.tile_count,
                                     tiles_x, tiles_y)
     out = color4.transpose(1, 2)                                 # (T, NPIX, 4)

@@ -1,0 +1,137 @@
+"""Checkpoint save / restore of the full training state (port of
+`bags_tpu/train/checkpoint.py`).
+
+One `chkpnt{it}.npz` holds every leaf by name. The leaves the JAX package
+also has use its names (format v2, `"v2|" + jax.tree_util.keystr(path)`):
+`.g.<field>`, `.alive`, `.cams.<field>`, `.align.quaternion`,
+`.align.log_scale`, `.stats.<field>` and `.step`, so either package reads
+the other's model, cameras and statistics. The optimizer states and the
+split-noise generator are the port's own (`"torch|..."` names); the JAX
+package's optimizer leaves are ignored on load.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os
+import re
+
+import numpy as np
+import torch
+
+from .optim import CAMERA_FIELDS, GAUSSIAN_GROUPS
+from .loop import TrainState
+
+PREFIX = "v2|"
+PORT = "torch|"
+
+
+def _host(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _model_leaves(state: TrainState) -> dict:
+    """The leaves named as the JAX package names them, as live tensors."""
+    out = {f".g.{f.name}": getattr(state.g, f.name)
+           for f in dataclasses.fields(state.g)}
+    out[".alive"] = state.alive
+    out.update({f".cams.{f.name}": getattr(state.cams, f.name)
+                for f in dataclasses.fields(state.cams)})
+    out[".align.quaternion"] = state.align.quaternion
+    out[".align.log_scale"] = state.align.log_scale
+    out.update({f".stats.{f.name}": getattr(state.stats, f.name)
+                for f in dataclasses.fields(state.stats)})
+    return out
+
+
+def _adam_leaves(prefix: str, opt: torch.optim.Optimizer, names) -> dict:
+    out = {}
+    for group, name in zip(opt.param_groups, names):
+        for i, p in enumerate(group["params"]):
+            for k, v in opt.state.get(p, {}).items():
+                out[f"{prefix}.{name}.{i}.{k}"] = v
+    return out
+
+
+def _optimizer_leaves(state: TrainState) -> dict:
+    out = _adam_leaves("g_opt", state.g_opt, [n for n, _ in GAUSSIAN_GROUPS])
+    out.update(_adam_leaves("align_opt", state.align_opt, ["align"]))
+    for f in CAMERA_FIELDS:
+        out[f"cam_opt.mu.{f}"] = state.cam_opt.mu[f]
+        out[f"cam_opt.nu.{f}"] = state.cam_opt.nu[f]
+    out["cam_opt.count"] = state.cam_opt.count
+    out["gen"] = state.gen.get_state()
+    return out
+
+
+def save_checkpoint(path: str, state: TrainState) -> None:
+    arrays = {PREFIX + k: _host(v) for k, v in _model_leaves(state).items()}
+    arrays[PREFIX + ".step"] = np.asarray(state.step, np.int32)
+    arrays.update({PORT + k: _host(v)
+                   for k, v in _optimizer_leaves(state).items()})
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def _restore_adam(prefix: str, opt: torch.optim.Optimizer, names, data,
+                  path: str) -> None:
+    for group, name in zip(opt.param_groups, names):
+        for i, p in enumerate(group["params"]):
+            keys = {k.rsplit(".", 1)[1]: k for k in data.files
+                    if k.startswith(f"{PORT}{prefix}.{name}.{i}.")}
+            if not keys:
+                opt.state.pop(p, None)       # saved before the first step
+                continue
+            st = {}
+            for k, key in keys.items():
+                v = torch.as_tensor(data[key])
+                st[k] = v if k == "step" else v.to(p.device)
+                if k != "step" and st[k].shape != p.shape:
+                    raise ValueError(f"{path}: {key} has shape "
+                                     f"{tuple(st[k].shape)}, parameter "
+                                     f"{tuple(p.shape)}")
+            opt.state[p] = st
+
+
+@torch.no_grad()
+def load_checkpoint(path: str, state: TrainState,
+                    with_optimizer: bool = True) -> TrainState:
+    """Restore `state` in place from `path` and return it. The model,
+    camera, alignment and statistics leaves must all be present under their
+    JAX names, with the template's shapes. `with_optimizer=False` (for
+    rendering) restores only those, so a checkpoint the JAX package wrote
+    loads too."""
+    data = np.load(path)
+    leaves = _model_leaves(state)
+    missing = [n for n in leaves if PREFIX + n not in data.files]
+    if missing:
+        raise ValueError(f"checkpoint {path} is missing leaves {missing[:8]}")
+    for name, t in leaves.items():
+        arr = data[PREFIX + name]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{path}: {name} has shape {arr.shape}, the "
+                             f"state {tuple(t.shape)}")
+        t.copy_(torch.as_tensor(arr))
+    state.step = int(data[PREFIX + ".step"])
+    if not with_optimizer:
+        return state
+    if not any(f.startswith(PORT) for f in data.files):
+        raise ValueError(f"checkpoint {path} holds no optimizer state of "
+                         "this package (written by the JAX package?)")
+    _restore_adam("g_opt", state.g_opt, [n for n, _ in GAUSSIAN_GROUPS],
+                  data, path)
+    _restore_adam("align_opt", state.align_opt, ["align"], data, path)
+    for f in CAMERA_FIELDS:
+        state.cam_opt.mu[f].copy_(torch.as_tensor(data[f"{PORT}cam_opt.mu.{f}"]))
+        state.cam_opt.nu[f].copy_(torch.as_tensor(data[f"{PORT}cam_opt.nu.{f}"]))
+    state.cam_opt.count.copy_(torch.as_tensor(data[f"{PORT}cam_opt.count"]))
+    state.gen.set_state(torch.as_tensor(data[f"{PORT}gen"]))
+    return state
+
+
+def find_max_iteration(folder: str, pattern: str = r"iteration_(\d+)") -> int:
+    """The largest iteration matching `pattern` in `folder`, or -1."""
+    its = [int(m.group(1)) for p in glob.glob(os.path.join(folder, "*"))
+           if (m := re.search(pattern, os.path.basename(p)))]
+    return max(its) if its else -1

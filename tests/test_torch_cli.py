@@ -14,6 +14,7 @@ from PIL import Image
 from bags_tpu.model import gaussians as jg
 from bags_tpu_torch.cli import render as port_cli
 from test_data import _write_colmap_scene
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _model(tmp_path, scene_root, centre):
@@ -108,15 +109,18 @@ def test_cli_unported_paths_raise(tmp_path):
     root = str(tmp_path / "scene")
     os.makedirs(root)
     _lookat_scene(root)
-    model = _model(tmp_path, root, (0.0, 0.0, 6.0))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        port_cli.main(["-m", model, "-s", root, "--device", "cpu",
-                       "--optim_test_pose_iter", "5"])
-    only_ckpt = str(tmp_path / "ckpt_model")
-    os.makedirs(only_ckpt)
-    open(os.path.join(only_ckpt, "chkpnt100.npz"), "wb").close()
-    with pytest.raises(NotImplementedError, match="checkpoint restore"):
-        port_cli.main(["-m", only_ckpt, "-s", root, "--device", "cpu"])
+    from bags_tpu_torch.train.config import TrainConfig
+
+    for flag, slice_ in (("outside_rasterizer", "slice 3"), ("hybrid", "slice 4")):
+        model = str(tmp_path / f"ckpt_{flag}")
+        os.makedirs(model)
+        open(os.path.join(model, "chkpnt100.npz"), "wb").close()
+        cfg = TrainConfig()
+        setattr(cfg.calib, flag, True)
+        with open(os.path.join(model, "cfg.json"), "w") as f:
+            f.write(cfg.to_json())
+        with pytest.raises(NotImplementedError, match=slice_):
+            port_cli.main(["-m", model, "-s", root, "--device", "cpu"])
 
 
 def test_cli_without_device_needs_a_card(tmp_path, monkeypatch):

@@ -25,6 +25,7 @@ from bags_tpu_torch.core import lie as tlie
 from bags_tpu_torch.core import projection as tproj
 from bags_tpu_torch.core import sh as tsh
 from bags_tpu_torch.utils.testing import make_toy_scene as tmake
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

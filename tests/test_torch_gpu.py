@@ -1,9 +1,11 @@
-"""On-card tests of the port's CUDA kernel (`gpu` marker). They skip without
+"""On-card tests of the port's CUDA kernels (`gpu` marker). They skip without
 a card. The file imports neither JAX nor `bags_tpu`, so it also runs where
 JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -56,9 +58,9 @@ def _rows(sc):
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_kernel_matches_plain(cuda, name):
     rows, bins, tx, ty = _rows(_scene(name, cuda))
-    before = composite.launches
+    before = composite.fwd_launches
     kc, kt = composite.composite_fwd(rows, bins.tile_start, bins.tile_count, tx, ty)
-    assert composite.launches == before + 1
+    assert composite.fwd_launches == before + 1
     pc, pt = tiles.composite_tiles_plain(rows, bins.tile_start, bins.tile_count,
                                          tx, ty)
     torch.testing.assert_close(kc, pc, atol=2e-5, rtol=0)
@@ -81,13 +83,61 @@ def test_render_on_card_matches_cpu(cuda):
     assert torch.equal(outs[0].gauss_id.cpu(), outs[1].gauss_id)
 
 
-def test_backward_on_card_is_slice_2(cuda):
-    sc = _scene("toy_sh3", cuda)
-    xyz = sc["xyz"].clone().requires_grad_(True)
-    out = render(xyz, *[sc[k] for k in ARGS[1:]], sc["cam"], sc["static"],
-                 RenderConfig(sh_degree=3))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        out.render.sum().backward()
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_backward_kernel_matches_plain(cuda, name):
+    """The backward kernel against `composite_bwd_plain` with seeded random
+    cotangents: within 1e-5 + 1e-3 |plain| element-wise. The dense tile's
+    pixels composite ~1,000 low-opacity instances, and float32 rounding alone
+    moves single entries of its opacity row past that (the plain version
+    against its own float64 replay too), so there the criterion is
+    chip_smoke.py's full-width one: relative L2 error of each row <= 1e-4
+    and at most 1e-4 of the entries off."""
+    rows, bins, tx, ty = _rows(_scene(name, cuda))
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    color, t_final = composite.composite_fwd(*args)
+    gen = torch.Generator().manual_seed(1)
+    g_color = torch.randn(color.shape, generator=gen).to(cuda)
+    g_t = torch.randn(t_final.shape, generator=gen).to(cuda)
+    before = composite.bwd_launches
+    got = composite.composite_bwd(*args, g_color, g_t, color, t_final)
+    assert composite.bwd_launches == before + 1
+    plain = tiles.composite_bwd_plain(*args, g_color, g_t, color, t_final)
+    assert float(plain.abs().max()) > 1.0
+    off = (got - plain).abs() > 1e-5 + 1e-3 * plain.abs()
+    if name == "dense_tile":
+        rel_l2 = torch.linalg.norm(got - plain, dim=1) / torch.linalg.norm(plain, dim=1)
+        assert float(rel_l2.max()) <= 1e-4
+        assert float(off.float().mean()) <= 1e-4
+    else:
+        assert not bool(off.any())
+
+
+def test_render_grads_on_card_match_cpu(cuda):
+    """A render's gradients through both kernels against autograd through the
+    plain compositor on the CPU: the Gaussians, the camera and the probes."""
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        sc = _scene("toy_sh3", dev)
+        leaves = [sc[k].clone().requires_grad_(True) for k in ARGS]
+        cam = sc["cam"]
+        cam_leaves = {"dq": torch.tensor([0.0, 0.01, -0.02, 0.005], device=dev),
+                      "dt": torch.tensor([0.02, -0.01, 0.03], device=dev),
+                      "fovx": cam.fovx.clone(), "fovy": cam.fovy.clone()}
+        for v in cam_leaves.values():
+            v.requires_grad_(True)
+        probes = [torch.zeros((700, 2), device=dev, requires_grad=True)
+                  for _ in range(2)]
+        before = composite.bwd_launches
+        out = render(*leaves, dataclasses.replace(cam, **cam_leaves), sc["static"],
+                     RenderConfig(sh_degree=3), bg=torch.tensor([0.3, 0.6, 0.9], device=dev),
+                     probe2d=probes[0], abs_probe=probes[1])
+        loss = (torch.mean((out.render - 0.25) ** 2) + 0.1 * out.t_final.mean()
+                + 0.01 * out.depth_map.mean())
+        loss.backward()
+        assert composite.bwd_launches == before + (dev.type == "cuda")
+        grads.append([x.grad.cpu() for x in leaves + list(cam_leaves.values()) + probes])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-3)
 
 
 def test_wrapper_rejects_mixed_devices(cuda):

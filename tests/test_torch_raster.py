@@ -27,6 +27,7 @@ from bags_tpu_torch.raster import composite
 from bags_tpu_torch.raster import tiles as ttiles
 from bags_tpu_torch.raster.reference import render_reference as t_reference
 from bags_tpu_torch.utils.testing import make_toy_scene as tmake
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 # jitted once per shape: the two kernel scenes share every shape
@@ -141,10 +142,10 @@ def test_composite_fwd_matches_pallas_kernel(jax_rows, scene):
     `_fwd_kernel` in interpret mode: it sums log(1 - alpha) with a prefix
     scan where the port multiplies, hence 2e-5 (tests/test_pallas_raster.py)."""
     d = jax_rows[scene]
-    before = composite.launches
+    before = composite.fwd_launches
     color, t_final = composite.composite_fwd(
         _t(d["rows"]), _t(d["start"]), _t(d["count"]), *d["tiles"])
-    assert composite.launches == before          # no kernel on the CPU
+    assert composite.fwd_launches == before          # no kernel on the CPU
     assert color.shape == d["color"].shape and t_final.shape == d["t_final"].shape
     np.testing.assert_allclose(color.numpy(), np.asarray(d["color"]), atol=2e-5)
     np.testing.assert_allclose(t_final.numpy(), np.asarray(d["t_final"]), atol=2e-5)

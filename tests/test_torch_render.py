@@ -29,6 +29,7 @@ from bags_tpu_torch.raster.render import RenderConfig as TCfg
 from bags_tpu_torch.raster.render import render as trender
 from bags_tpu_torch.utils.testing import make_toy_scene as _tmake
 from test_data import _write_colmap_scene
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARGS = ("xyz", "scales", "quats", "opacity", "sh_coeffs")
 FIELDS = ("render", "t_final", "depth_map", "radii", "mean2d")
