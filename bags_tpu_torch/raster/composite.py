@@ -8,7 +8,8 @@ launch the hand-written kernels `bags_tpu_torch/csrc/composite_fwd.cu` and
 `csrc/composite_bwd.cu`, or raise; for CPU tensors they run the plain
 PyTorch versions `tiles.composite_tiles_plain` and
 `tiles.composite_bwd_plain`. They never fall back from a kernel to its plain
-version.
+version. The profiling tool's kernels (`csrc/composite_ablate.cu`, wrapped in
+`bags_tpu_torch/tools/kernablate.py`) are built and launched here too.
 
 The kernels are compiled with nvcc for sm_90a into shared libraries with a
 plain C entry point, at first use, into `build/` at the repository root (one
@@ -34,15 +35,21 @@ from .tiles import F_ACTIVE, NPIX, composite_bwd_plain, composite_tiles_plain
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"composite_fwd": CSRC / "composite_fwd.cu",
-           "composite_bwd": CSRC / "composite_bwd.cu"}
+           "composite_bwd": CSRC / "composite_bwd.cu",
+           "composite_ablate": CSRC / "composite_ablate.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_TILES = [_P, _I64, _P, _P, _I, _I, _P, _P, _P]
+# C entry point `{name}_launch` -> (source, argument types)
 _ARGTYPES = {
-    "composite_fwd": [_P, _I64, _P, _P, _I, _I, _P, _P, _P],
-    "composite_bwd": [_P, _I64, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "composite_fwd": ("composite_fwd", _TILES),
+    "composite_bwd": ("composite_bwd",
+                      [_P, _I64, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]),
+    "composite_ablate": ("composite_ablate", [_I] + _TILES),
+    "composite_fwd_fori": ("composite_ablate", _TILES),
 }
 
 # Kernel launches made through `composite_fwd` / `composite_bwd` in this
@@ -105,16 +112,19 @@ def build(names=tuple(SOURCES)) -> dict:
 
 
 def _load(name: str):
+    """The C entry point `{name}_launch`, its source built at first use."""
     if name not in _libs:
-        lib = ctypes.CDLL(str(build((name,))[name]))
+        source, argtypes = _ARGTYPES[name]
+        lib = ctypes.CDLL(str(build((source,))[source]))
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _libs[name] = fn
     return _libs[name]
 
 
-def _check(rows, tile_start, tile_count, tiles_x, tiles_y):
+def check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y):
+    """Raise on rows / tile ranges the kernels do not take."""
     num_tiles = tiles_x * tiles_y
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[0] < F_ACTIVE:
         raise ValueError(f"rows must be float32 (F >= {F_ACTIVE}, M), got "
@@ -147,9 +157,11 @@ def _check_pixels(rows, num_tiles, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y):
-    global fwd_launches
-    fn = _load("composite_fwd")
+def launch_tiles(name, rows, tile_start, tile_count, tiles_x, tiles_y, *lead):
+    """Launch the per-tile kernel `name` (arguments as `composite_fwd`,
+    after the int arguments `lead`) on the current stream; raise if the
+    launch fails. Returns color+depth (T, 4, 256) and t (T, 256)."""
+    fn = _load(name)
     num_tiles = tiles_x * tiles_y
     color = torch.empty((num_tiles, 4, NPIX), dtype=torch.float32,
                         device=rows.device)
@@ -157,13 +169,20 @@ def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y):
                           device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
+        err = fn(*lead, rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
                  tile_count.data_ptr(), tiles_x, num_tiles, color.data_ptr(),
                  t_final.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed: cudaError {err}")
-    fwd_launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return color, t_final
+
+
+def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y):
+    global fwd_launches
+    out = launch_tiles("composite_fwd", rows, tile_start, tile_count, tiles_x,
+                       tiles_y)
+    fwd_launches += 1
+    return out
 
 
 def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
@@ -217,7 +236,7 @@ def composite_fwd(rows: torch.Tensor, tile_start: torch.Tensor,
     (mx my ca cb cc o r g b depth); tile_start / tile_count: (T,) int32.
     Returns color+depth (T, 4, 256) without background and t_final (T, 256).
     """
-    _check(rows, tile_start, tile_count, tiles_x, tiles_y)
+    check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y)
     if rows.device.type == "cpu":
         return composite_tiles_plain(rows, tile_start, tile_count,
                                      tiles_x, tiles_y)
@@ -234,7 +253,7 @@ def composite_bwd(rows: torch.Tensor, tile_start: torch.Tensor,
     t_final (T, 256): its outputs; g_color, g_t: their cotangents. Returns
     d_rows (10, M) float32 in slot order (mx my ca cb cc o r g b depth).
     """
-    _check(rows, tile_start, tile_count, tiles_x, tiles_y)
+    check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y)
     _check_pixels(rows, tiles_x * tiles_y, g_color=g_color, g_t=g_t,
                   color=color, t_final=t_final)
     if rows.device.type == "cpu":

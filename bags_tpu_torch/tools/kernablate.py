@@ -1,0 +1,215 @@
+"""Ablation timings of the forward compositing loop (port of
+`tools/kernablate.py`).
+
+    python -m bags_tpu_torch.tools.kernablate          # the four modes
+    python -m bags_tpu_torch.tools.kernablate real     # fori vs the forward
+
+`composite_ablate(..., mode)` runs one of four deliberately invalid
+variants of the forward kernel's loop, for timing only (the port of
+`make_kernel(mode)`'s `kern`, `csrc/composite_ablate.cu`): each tile walks
+its 128-slot chunks aligned to global multiples of 128, and each pixel
+every instance of its tile in them, with no termination. Per pair, with
+`power` as in the forward, ok = alpha >= 1/255 and power <= 0, a = alpha
+where ok, 0 elsewhere:
+
+  dma_only           w = power
+  no_transcendental  alpha = min(0.99, o power), w = a (1 + S), S the
+                     exclusive running sum of a inside the chunk
+  no_scan            alpha = min(0.99, o exp(power)), w = a exp(log1p(-a))
+  full               alpha as no_scan, w = a exp(L), L the exclusive
+                     running sum of log1p(-a) inside the chunk
+
+and every mode returns sum(colour w) per pixel (r, g, b, depth) and
+t = 1 - 0 * sum(w). `no_transcendental` composites nothing: o >= 0 and
+power <= 0 make o power <= 0 < 1/255 for every pair, in the JAX tool too.
+
+`composite_fwd_fori` is the forward kernel with its early exit as a compute
+skip (the port of `fori_kernel`): the block loads every batch of its tile
+and only a pixel that is done skips the work. Its function is the
+forward's, bit for bit, so its plain version is
+`tiles.composite_tiles_plain`.
+
+For CUDA tensors the wrappers launch the kernels or raise; for CPU tensors
+they run the plain versions. `launches` counts the kernel launches per mode
+and of `fori`.
+
+`modes()` and `real_variants()` run the JAX tool's workload (100,000 toy
+Gaussians at SH 3, 800x800, an instance budget of 2^20) and print one
+`mode: ms` line each (CUDA events on the card, median of 7), then
+`real fori+when` against `real while_loop` (the forward kernel) and their
+largest differences.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from ..raster import composite
+from ..raster.tiles import (ALPHA_MAX, ALPHA_MIN, F_ACTIVE, NPIX, R_CA, R_CB,
+                            R_CC, R_D, R_MX, R_MY, R_O, R_R,
+                            composite_tiles_plain, tile_pixel_coords)
+from ..utils.device import resolve_device
+from ..utils.profiling import timed, toy_workload
+
+MODES = ("dma_only", "no_transcendental", "no_scan", "full")
+CHUNK = 128  # slots per chunk, the TPU tool's lane width K
+
+# Kernel launches made through `composite_ablate` (per mode) and
+# `composite_fwd_fori` (key "fori") in this process.
+launches = {mode: 0 for mode in MODES + ("fori",)}
+
+
+def _mode_weights(mode, power, op, valid, exclusive_sum):
+    """(A, K, P) weights of ablation mode `mode` (see the module docstring)."""
+    if mode == "dma_only":
+        return torch.where(valid, power, torch.zeros_like(power))
+    lin = mode == "no_transcendental"
+    alpha = torch.clamp(op * (power if lin else torch.exp(power)), max=ALPHA_MAX)
+    ok = (alpha >= ALPHA_MIN) & (power <= 0.0) & valid
+    a = torch.where(ok, alpha, torch.zeros_like(alpha))
+    if lin:
+        return a * (1.0 + exclusive_sum(a))
+    if mode == "no_scan":
+        return a * torch.exp(torch.log1p(-a))
+    return a * torch.exp(exclusive_sum(torch.log1p(-a)))
+
+
+def composite_ablate_plain(rows, tile_start, tile_count, tiles_x, tiles_y,
+                           mode, tile_batch=512):
+    """Plain PyTorch version of the ablation kernel of mode `mode`.
+
+    Arguments as `composite.composite_fwd`. Returns colour+depth
+    (T, 4, 256) and t (T, 256). Chunk i of every tile that has one runs as
+    one batched step, `tile_batch` tiles at a time to bound memory.
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    device = rows.device
+    num_tiles = tiles_x * tiles_y
+    px, py = tile_pixel_coords(tiles_x, tiles_y, device)
+    start = tile_start.to(torch.int64)
+    end = start + tile_count.to(torch.int64)
+    first = start // CHUNK
+    n_chunks = torch.where(tile_count > 0, (end + CHUNK - 1) // CHUNK - first, 0)
+    acc = rows.new_zeros((num_tiles, NPIX, 4))
+    t_out = rows.new_ones((num_tiles, NPIX))
+    lanes = torch.arange(CHUNK, device=device)
+
+    def exclusive_sum(x):
+        return torch.cat([torch.zeros_like(x[:, :1]),
+                          torch.cumsum(x, dim=1)[:, :-1]], dim=1)
+
+    for i in range(int(n_chunks.max()) if num_tiles else 0):
+        for act in torch.nonzero(n_chunks > i).squeeze(1).split(tile_batch):
+            pos = (first[act, None] + i) * CHUNK + lanes              # (A, K)
+            valid = (pos >= start[act, None]) & (pos < end[act, None])
+            feat = rows[:F_ACTIVE, torch.where(valid, pos, 0)]        # (F, A, K)
+            feat = torch.where(valid[None], feat, torch.zeros_like(feat))
+            mx, my, ca, cb, cc, op = (feat[r][..., None] for r in
+                                      (R_MX, R_MY, R_CA, R_CB, R_CC, R_O))
+            dx = px[act][:, None, :] - mx                             # (A, K, P)
+            dy = py[act][:, None, :] - my
+            power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+            w = _mode_weights(mode, power, op, valid[..., None], exclusive_sum)
+            col = feat[R_R:R_D + 1].permute(1, 2, 0)                  # (A, K, 4)
+            acc[act] += torch.einsum("akp,akc->apc", w, col)
+            t_out[act] = t_out[act] - 0.0 * w.sum(dim=1)
+    return acc.permute(0, 2, 1).contiguous(), t_out
+
+
+def composite_ablate(rows: torch.Tensor, tile_start: torch.Tensor,
+                     tile_count: torch.Tensor, tiles_x: int, tiles_y: int,
+                     mode: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ablation variant `mode` of the forward loop, for timing only.
+
+    Arguments as `composite.composite_fwd`. Returns colour+depth
+    (T, 4, 256) and t (T, 256). CUDA tensors launch
+    `csrc/composite_ablate.cu`, CPU tensors run `composite_ablate_plain`.
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    composite.check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y)
+    if rows.device.type == "cpu":
+        return composite_ablate_plain(rows, tile_start, tile_count, tiles_x,
+                                      tiles_y, mode)
+    out = composite.launch_tiles("composite_ablate", rows, tile_start,
+                                 tile_count, tiles_x, tiles_y, MODES.index(mode))
+    launches[mode] += 1
+    return out
+
+
+def composite_fwd_fori(rows: torch.Tensor, tile_start: torch.Tensor,
+                       tile_count: torch.Tensor, tiles_x: int, tiles_y: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward compositing with its early exit as a compute skip.
+
+    Arguments and outputs as `composite.composite_fwd` (not
+    differentiable). CUDA tensors launch `csrc/composite_ablate.cu`'s
+    `composite_fwd_fori_kernel`, CPU tensors run
+    `tiles.composite_tiles_plain`.
+    """
+    composite.check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y)
+    if rows.device.type == "cpu":
+        return composite_tiles_plain(rows, tile_start, tile_count, tiles_x,
+                                     tiles_y)
+    out = composite.launch_tiles("composite_fwd_fori", rows, tile_start,
+                                 tile_count, tiles_x, tiles_y)
+    launches["fori"] += 1
+    return out
+
+
+def _workload(args):
+    device = resolve_device(args.device)
+    _, _, bins, rows, tx, ty = toy_workload(args.n, args.size,
+                                            args.max_instances, device)
+    return device, (rows, bins.tile_start, bins.tile_count, tx, ty)
+
+
+def modes(args) -> dict:
+    """Each mode's median ms on the workload; returns {mode: ms}."""
+    device, inputs = _workload(args)
+    out = {}
+    with torch.no_grad():
+        for mode in MODES:
+            out[mode] = timed(lambda: composite_ablate(*inputs, mode), device)
+            print(f"{mode:22s}: {out[mode]:7.3f} ms")
+    return out
+
+
+def real_variants(args) -> dict:
+    """`composite_fwd_fori` against the forward kernel: median ms of each
+    and their largest differences."""
+    device, inputs = _workload(args)
+    with torch.no_grad():
+        out = {"fori": timed(lambda: composite_fwd_fori(*inputs), device)}
+        print(f"{'real fori+when':22s}: {out['fori']:7.3f} ms")
+        out["while"] = timed(lambda: composite.composite_fwd(*inputs), device)
+        print(f"{'real while_loop':22s}: {out['while']:7.3f} ms")
+        c1, t1 = composite_fwd_fori(*inputs)
+        c2, t2 = composite.composite_fwd(*inputs)
+    out["dcolor"] = float((c1 - c2).abs().max())
+    out["dt"] = float((t1 - t2).abs().max())
+    print("max |dcolor|:", out["dcolor"], "max |dt|:", out["dt"])
+    return out
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("which", nargs="?", choices=("real",),
+                   help="'real': fori against the forward kernel")
+    p.add_argument("--n", type=int, default=100_000)
+    p.add_argument("--size", type=int, default=800)
+    p.add_argument("--max_instances", type=int, default=2 ** 20)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    return real_variants(args) if args.which == "real" else modes(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,243 @@
+"""Per-stage timings of a render + loss fwd+bwd step (port of
+`tools/stagebench.py`).
+
+    python -m bags_tpu_torch.tools.stagebench [--n 100000 --size 800
+        --max_instances 1048576 --device cuda]
+
+On the JAX tools' workload (`utils/profiling.toy_workload`) it times, each
+alone: binning, the render forward, render + loss forward, the gather
+forward and backward, the compositing kernels forward and backward, the
+projection fwd+bwd, the SSIM loss fwd+bwd, and the full step
+(`render_step`: `render()` + photometric loss, forward and backward, as
+the JAX tool times it) in ms and Mpix/s, and beside it the stage-labelled
+step that the profile CLI traces (`fwd_bwd_step`). Each time is the median of 7 calls
+after a warm-up, CUDA events on the card (`utils/profiling.timed`); the
+JAX tool's chain of calls inside one jit has no counterpart here.
+
+`fwd_bwd_step` is the same step stage by stage, each stage under a
+`torch.profiler.record_function` label ("step/projection", ...), calling
+the functions `render()` calls; the profile CLI traces it.
+`tests/test_torch_profile.py` holds its loss and gradients equal to
+`render_step`'s, so that the two cannot drift apart.
+`train_step_stages` splits a training step of a trained model the same way
+(`chip_smoke.py` calls it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+from torch.profiler import record_function
+
+from ..core.projection import project_gaussians
+from ..raster import binning, composite, tiles
+from ..raster.render import RenderConfig, build_packet_table, gather_rows, render
+from ..train.losses import photometric_loss
+from ..utils.device import resolve_device
+from ..utils.profiling import timed, toy_workload
+
+ARGS = ("xyz", "scales", "quats", "opacity", "sh_coeffs")
+CAM_LEAVES = ("dq", "dt", "fovx", "fovy")
+STAGES = ("projection", "binning", "gather", "composite_fwd", "loss", "backward")
+
+
+def _leaves(sc):
+    """Fresh leaves of the five Gaussian tensors and of the camera's
+    `CAM_LEAVES`, and the camera made of them."""
+    leaves = [sc[k].detach().requires_grad_(True) for k in ARGS]
+    cam_leaves = [getattr(sc["cam"], f).detach().requires_grad_(True)
+                  for f in CAM_LEAVES]
+    return leaves, cam_leaves, dataclasses.replace(
+        sc["cam"], **dict(zip(CAM_LEAVES, cam_leaves)))
+
+
+def render_step(sc, cfg, gt):
+    """One `render()` + photometric-loss step against `gt` (3, H, W),
+    forward and backward. Returns the loss and its gradients: the five
+    Gaussian tensors of `ARGS`, then the camera's `CAM_LEAVES`."""
+    leaves, cam_leaves, cam = _leaves(sc)
+    loss = photometric_loss(render(*leaves, cam, sc["static"], cfg).render, gt)
+    return loss.detach(), torch.autograd.grad(loss, leaves + cam_leaves)
+
+
+def fwd_bwd_step(sc, cfg, gt):
+    """`render_step` stage by stage, each under
+    `record_function("step/<stage>")`, for a trace. Returns what
+    `render_step` returns."""
+    leaves, cam_leaves, cam = _leaves(sc)
+    static = sc["static"]
+    tx, ty = tiles.tile_grid(static.width, static.height)
+    with record_function("step/projection"):
+        proj = project_gaussians(*leaves, cam, static, cfg.sh_degree)
+    with record_function("step/binning"):
+        bins = binning.bin_gaussians(proj.detach(), tx, ty, cfg.max_instances)
+    with record_function("step/gather"):
+        rows = gather_rows(build_packet_table(proj, proj.x2d, proj.y2d), None,
+                           bins.gauss_id)
+    with record_function("step/composite_fwd"):
+        color4, _ = composite.composite_fwd(rows, bins.tile_start,
+                                            bins.tile_count, tx, ty)
+    with record_function("step/loss"):
+        img = tiles.tiles_to_image(color4.transpose(1, 2)[..., :3], tx, ty,
+                                   static.width, static.height)
+        loss = photometric_loss(img, gt)
+    with record_function("step/backward"):
+        grads = torch.autograd.grad(loss, leaves + cam_leaves)
+    return loss.detach(), grads
+
+
+def stage_times(n, size, max_instances, device):
+    """Median ms of each stage on the tools' workload; prints one line
+    each and returns {stage: ms} (and "Mpix/s" of the full step)."""
+    device = resolve_device(device)
+    sc, proj, bins, rows, tx, ty = toy_workload(n, size, max_instances, device)
+    static = sc["static"]
+    args = [sc[k] for k in ARGS]
+    cfg = RenderConfig(sh_degree=3, max_instances=max_instances)
+    gt = torch.zeros((3, size, size), device=device)
+    print(f"n_instances: {bins.n_instances} dropped: {bins.n_dropped} "
+          f"device: {device}")
+    out = {}
+
+    def report(name, fn):
+        out[name] = timed(fn, device)
+        print(f"{name:26s}: {out[name]:7.3f} ms")
+
+    with torch.no_grad():
+        report("binning", lambda: binning.bin_gaussians(
+            proj, tx, ty, max_instances))
+        report("render fwd (full)", lambda: render(
+            *args, sc["cam"], static, cfg).render)
+        report("render+loss fwd", lambda: photometric_loss(render(
+            *args, sc["cam"], static, cfg).render, gt))
+        table = build_packet_table(proj, proj.x2d, proj.y2d)
+        report("gather fwd", lambda: gather_rows(table, None, bins.gauss_id))
+
+    table_g = table.clone().requires_grad_(True)
+    absp = torch.zeros((n, 2), device=device, requires_grad=True)
+    rows_g = gather_rows(table_g, absp, bins.gauss_id)
+    report("gather bwd (index_add_)", lambda: torch.autograd.grad(
+        rows_g, [table_g, absp], rows, retain_graph=True))
+
+    with torch.no_grad():
+        comp = (rows, bins.tile_start, bins.tile_count, tx, ty)
+        report("composite fwd", lambda: composite.composite_fwd(*comp))
+        color, t_final = composite.composite_fwd(*comp)
+        g_t = torch.zeros_like(t_final)
+        report("composite bwd", lambda: composite.composite_bwd(
+            *comp, color, g_t, color, t_final))
+
+    def proj_fwd_bwd():
+        xyz = args[0].detach().requires_grad_(True)
+        x2d = project_gaussians(xyz, *args[1:], sc["cam"], static, 3).x2d
+        return torch.autograd.grad(x2d, xyz, x2d.detach())
+    report("projection fwd+bwd", proj_fwd_bwd)
+
+    img0 = torch.zeros((3, size, size), device=device, requires_grad=True)
+    report("ssim loss fwd+bwd", lambda: torch.autograd.grad(
+        photometric_loss(img0, gt), img0))
+
+    report("FULL fwd+bwd step", lambda: render_step(sc, cfg, gt))
+    out["Mpix/s"] = size * size / (out["FULL fwd+bwd step"] / 1e3) / 1e6
+    print(f"  -> {out['Mpix/s']:.2f} Mpix/s")
+    # the stage-labelled step the profile CLI traces, beside the real one
+    report("labelled step (traced)", lambda: fwd_bwd_step(sc, cfg, gt))
+    return out
+
+
+def train_step_stages(state, scene, cfg, device):
+    """Where a training step of `state` on `scene`'s train view 0 goes, on
+    the card: the stages of `train_step` run one by one with a synchronise
+    after each, the backward kernel timed apart, then `train_step` itself
+    and the peak memory. Prints the stages (ms) and the step times."""
+    from ..core.camera import CameraParams
+    from ..train.loop import train_step
+    from ..train.optim import CAMERA_FIELDS, camera_lrs, row_adam_update
+
+    g, alive, cams = state.g, state.alive, state.cams
+    static, idx = scene.static, 0
+    gt = scene.train_image(idx)
+    bg = torch.zeros(3, device=device)
+    rcfg = RenderConfig(sh_degree=0)
+    stages = {}
+    for rep in range(3):
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def tick(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name] = (now - last[0]) * 1e3
+            last[0] = now
+
+        row = {f: getattr(cams, f)[idx].detach().clone().requires_grad_(True)
+               for f in CAMERA_FIELDS}
+        cam = CameraParams(q_init=cams.q_init[idx], t_init=cams.t_init[idx], **row)
+        probe = torch.zeros((state.capacity, 2), device=device, requires_grad=True)
+        absp = torch.zeros_like(probe, requires_grad=True)
+        proj = project_gaussians(g.xyz, g.scaling(), g.quats, g.opacity(alive),
+                                 g.sh_coeffs(), cam, static, 0, align=state.align)
+        x2d, y2d = proj.x2d + probe[:, 0], proj.y2d + probe[:, 1]
+        tick("projection_sh")
+        tx, ty = tiles.tile_grid(static.width, static.height)
+        bins = binning.bin_gaussians(
+            dataclasses.replace(proj, x2d=x2d, y2d=y2d).detach(), tx, ty)
+        tick("binning")
+        rows = gather_rows(build_packet_table(proj, x2d, y2d), absp, bins.gauss_id)
+        tick("gather")
+        color4, t_final = composite.composite_fwd(rows, bins.tile_start,
+                                                  bins.tile_count, tx, ty)
+        tick("forward_kernel")
+        out = color4.transpose(1, 2)
+        img = tiles.tiles_to_image(out[..., :3] + t_final[..., None] * bg, tx, ty,
+                                   static.width, static.height)
+        loss = photometric_loss(img, gt, cfg.opt.lambda_dssim)
+        tick("loss")
+        state.g_opt.zero_grad()
+        loss.backward()
+        tick("backward_all")
+        state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
+        state.g_opt.step()
+        row_adam_update(cams, state.cam_opt, {f: row[f].grad for f in row}, idx,
+                        camera_lrs(cfg.calib, state.step))
+        tick("optimizer")
+    with torch.no_grad():
+        g_c = torch.randn_like(color4)
+        g_tf = torch.randn_like(t_final)
+        bwd_ms = timed(lambda: composite.composite_bwd(
+            rows.detach(), bins.tile_start, bins.tile_count, tx, ty, g_c, g_tf,
+            color4.detach(), t_final.detach()), device, 10)
+    stages["backward_kernel"] = bwd_ms
+    stages["backward_rest"] = stages["backward_all"] - bwd_ms
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        train_step(state, gt, idx, bg, static, rcfg, cfg)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("train step stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    print(f"train step: {bins.n_instances} instances, {int(alive.sum())} live of "
+          f"{state.capacity}; step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
+          + f"; peak memory {peak:.2f} GiB")
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--n", type=int, default=100_000)
+    p.add_argument("--size", type=int, default=800)
+    p.add_argument("--max_instances", type=int, default=2 ** 20)
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    return stage_times(args.n, args.size, args.max_instances, args.device)
+
+
+if __name__ == "__main__":
+    main()

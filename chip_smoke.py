@@ -6,15 +6,20 @@
 Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
 `bags_tpu`. In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds both compositing kernels from `bags_tpu_torch/csrc` (one nvcc
-     per source, in parallel) and prints each build's time and ptxas report;
+  2. builds the three kernel sources of `bags_tpu_torch/csrc` (compositing
+     forward, backward, and the profiling tool's ablation and fori
+     kernels; one nvcc per source, in parallel) and prints each build's
+     time and ptxas report;
   3. holds the forward kernel against its plain PyTorch version at test
      sizes (toy scene, unaligned-spill scene, a tile with > 4096 instances):
      max abs difference <= 2e-5; and the backward kernel against
      `composite_bwd_plain` on the same scenes with seeded random cotangents:
      |kernel - plain| <= 1e-5 + 1e-3 |plain| element-wise, and on the dense
      tile, where float32 rounding alone exceeds that, the full-width
-     criterion of step 7;
+     criterion of step 7; then the four ablation kernels against
+     `composite_ablate_plain` (`ablation_agreement` states the tolerances)
+     and the fori kernel bit-identical to the forward kernel and within
+     2e-5 of `composite_tiles_plain`;
   4. camera gradients on the card: dq, dt, fovx, fovy of a toy render with
      both kernels against the same computation on the CPU (plain versions),
      atol 1e-5, rtol 1e-3; then pose recovery on the card (80 Adam steps of
@@ -27,7 +32,9 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      forward launch per view, PSNR >= 45 dB per view, and on one view in
      float: max abs difference <= 1e-3 and at most 1e-4 of the pixels off
      by more than 2e-5. Then times each view, the kernel, the plain version
-     and the stages of one view;
+     and the stages of one view; and on view 0 the four ablation kernels
+     against their plain versions, their times and bounds, and the fori
+     kernel bit-identical to the forward kernel and timed beside it;
   6. the training path at full width: `bags_tpu_torch.cli.train --preset
      pose_noise --init_type sfm` for 30 iterations on that dataset (1M live
      Gaussians at SH 3), densify grad threshold lowered to 5e-8. Checks: one forward and one backward launch per
@@ -42,7 +49,17 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      `--ply_only`) and renders both splits with `--optim_test_pose_iter 5`;
   9. where a full-width training step's time goes, by stage, the whole
      step's time and the peak device memory;
- 10. prints the kernels line (JSON) and, last, the device line (JSON).
+ 10. the profiling tools at their defaults, in-process through their
+     `main(argv)` so that the launch counts are read: the profile CLI with
+     `--trace` (the trace must name both compositing kernels and every
+     stage), `tools.stagebench`, `tools.kernablate` and `tools.kernablate
+     real` (fori identical to the forward kernel); each tool must launch
+     its kernels. Then, at the tools' workload (100,000 Gaussians, 800x800,
+     about 540k instances), every kernel they launch against its plain
+     version: the forward and fori kernels at step 5's full-width
+     criterion, fori bit-identical to the forward kernel, each ablation
+     mode as on view 0, and the backward kernel at step 7's criterion;
+ 11. prints the kernels line (JSON) and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -57,21 +74,6 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) FLOP/s.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-# FP32 operations per pixel-instance pair the kernel's loop visits: every
-# visited pair computes dx, dy and power and tests power (12); with
-# power <= 0 it takes exp, multiplies, clamps and tests alpha (4 more);
-# with alpha >= 1/255 it forms and tests T (1 - alpha) (3 more); and a pair
-# that is composited forms w and four fused multiply-adds (9 more).
-OPS_VISITED, OPS_EXP, OPS_ALPHA, OPS_COMPOSITED = 12, 4, 3, 9
-# The backward kernel replays the same visits (12, 4 and 3 as above); an
-# included pair then forms w (1), per channel the prefix, the suffix term,
-# <g, c> and the colour gradient g w (9 x 4), dL/dalpha (6), the clamp test
-# (1), d_power (1), the six geometric gradients (4 + 4 + 3 + 3 + 3 + 1) and
-# the sum of all ten over the tile's pixels (10).
-OPS_BWD_INCLUDED = 1 + 36 + 6 + 1 + 1 + 18 + 10
 TOL_TEST = 2e-5
 N_GAUSS, WIDTH, HEIGHT, N_CAMS = 1_000_000, 1600, 1080, 8
 TRAIN_ITERS = 30
@@ -80,20 +82,6 @@ TRAIN_ITERS = 30
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def sync_ms(fn, iters):
-    """Mean ms of fn() over iters calls, CUDA events, after one warm-up."""
-    import torch
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def frame(g, alive, cam, static, sh_degree, timer=None):
@@ -134,64 +122,20 @@ def compare(a, b):
     return float(pix.max()), pix
 
 
-def pair_counts(rows, tile_start, tile_count, tiles_x, tiles_y, chunk=32):
-    """Pixel-instance pairs the kernels' loops visit on these inputs: each
-    pixel walks its tile's instances up to and including the one that ends
-    it (T (1 - alpha) < 1e-4), or to the tile's end. Returns (visited, with
-    power <= 0, with alpha >= 1/255, included)."""
+def fwd_agreement(label, kern, plain):
+    """The full-width criterion of a forward-like kernel against
+    `composite_tiles_plain`: max abs difference <= 1e-3 and at most 1e-4 of
+    the pixels off by more than 2e-5. Returns the max abs difference."""
     import torch
-    from bags_tpu_torch.raster import tiles as tl
 
-    px, py = tl.tile_pixel_coords(tiles_x, tiles_y, rows.device)
-    start, count = tile_start.long(), tile_count.long()
-    t_run = torch.ones_like(px)
-    done = torch.zeros_like(px, dtype=torch.bool)
-    offs = torch.arange(chunk, device=rows.device)
-    counts = [0, 0, 0, 0]
-    for k in range(0, int(count.max()), chunk):
-        act = torch.nonzero((count > k) & ~done.all(dim=1)).squeeze(1)
-        if act.numel() == 0:
-            break
-        in_range = (k + offs)[None, :] < count[act, None]
-        f = rows[:, torch.where(in_range, start[act, None] + k + offs, 0)]
-        dx = px[act][:, None, :] - f[0][..., None]
-        dy = py[act][:, None, :] - f[1][..., None]
-        power = -0.5 * (f[2][..., None] * dx * dx + f[4][..., None] * dy * dy) \
-            - f[3][..., None] * dx * dy
-        alpha = torch.clamp(f[5][..., None] * torch.exp(power), max=tl.ALPHA_MAX)
-        ok = (alpha >= tl.ALPHA_MIN) & (power <= 0) & in_range[..., None]
-        a = torch.where(ok, alpha, 0.0)
-        cp = torch.cumprod(1.0 - a, dim=1)
-        t_before = t_run[act][:, None, :] * torch.cat(
-            [torch.ones_like(cp[:, :1]), cp[:, :-1]], dim=1)
-        kill = ok & (t_before * (1.0 - a) < tl.T_EPS)
-        killed_before = (torch.cumsum(kill.int(), dim=1) - kill.int()) > 0
-        visited = in_range[..., None] & ~killed_before & ~done[act][:, None, :]
-        inc = visited & ok & ~kill
-        for i, m in enumerate((visited, visited & (power <= 0), visited & ok, inc)):
-            counts[i] += int(m.sum())
-        t_run[act] = t_run[act] * torch.where(inc, 1.0 - a, 1.0).prod(dim=1)
-        done[act] |= (kill & visited).any(dim=1)
-    return tuple(counts)
-
-
-def fwd_ops(counts):
-    visited, exp, alpha, inc = counts
-    return (OPS_VISITED * visited + OPS_EXP * exp + OPS_ALPHA * alpha
-            + OPS_COMPOSITED * inc)
-
-
-def bwd_ops(counts):
-    visited, exp, alpha, inc = counts
-    return (OPS_VISITED * visited + OPS_EXP * exp + OPS_ALPHA * alpha
-            + OPS_BWD_INCLUDED * inc)
-
-
-def bound(n_bytes, n_ops):
-    """(bound ms, what bounds it) on the H100's published peaks."""
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_FP32_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    torch.cuda.synchronize()
+    err, pix = compare(kern, plain)
+    frac = float((pix > 2e-5).float().mean())
+    print(f"{label} kernel vs plain: max_abs_diff={err:.3e}, "
+          f"share of pixels off by > 2e-5: {frac:.3e}")
+    check(err <= 1e-3, f"{label}: max abs diff {err} > 1e-3")
+    check(frac <= 1e-4, f"{label}: {frac} of pixels off by > 2e-5")
+    return err
 
 
 def as_gaussians(sc):
@@ -281,6 +225,70 @@ def test_size_checks(device):
                             f"1e-5 + 1e-3 |plain|")
 
 
+def ablation_agreement(label, mode, kern, plain, full_width):
+    """Check an ablation kernel's output against its plain version and
+    return the max abs difference. t is exactly 1 in both, and
+    no_transcendental's colour exactly 0 in both. At test sizes: dma_only
+    within 1e-6 of max |plain| (its weight, power, is unbounded), no_scan
+    and full within 2e-5. At full width, where a pixel may sum dozens of
+    128-slot chunks into values past the range those were set for:
+    element-wise within 2e-5 + 1e-5 |plain|. Every term of a pixel's sum
+    has one sign, so the kernel's sequential order and the plain version's
+    batched one differ by a few float32 ulps of the sum."""
+    import torch
+
+    (kc, kt), (pc, pt) = kern, plain
+    torch.cuda.synchronize()
+    diff = (kc - pc).abs()
+    err, top = float(diff.max()), float(pc.abs().max())
+    off = int((diff > 2e-5 + 1e-5 * pc.abs()).sum())
+    t_one = bool((kt == 1).all()) and bool((pt == 1).all())
+    print(f"{label} {mode}: max_abs_diff={err:.3e} max|plain|={top:.4e} "
+          f"entries off by > 2e-5 + 1e-5|plain|: {off}; t == 1 everywhere: {t_one}")
+    check(t_one, f"{label} {mode}: t is not exactly 1")
+    if mode == "no_transcendental":
+        check(top == 0.0 and float(kc.abs().max()) == 0.0,
+              f"{label} {mode}: colour is not exactly 0")
+    elif full_width:
+        check(off == 0, f"{label} {mode}: {off} entries off")
+    elif mode == "dma_only":
+        check(err <= 1e-6 * top, f"{label} {mode}: {err} > 1e-6 x {top}")
+    else:
+        check(err <= TOL_TEST, f"{label} {mode}: {err} > {TOL_TEST}")
+    return err
+
+
+def ablation_test_size(device):
+    """The four ablation kernels and fori against their plain versions on
+    the three test scenes, and fori bit-identical to the forward kernel
+    (step 3)."""
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.tools import kernablate as ka
+
+    for name, sc in test_scenes(device).items():
+        g, alive = as_gaussians(sc)
+        rows, bins, tx, ty = frame(g, alive, sc["cam"], sc["static"],
+                                   sc["sh_degree"])
+        args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+        for mode in ka.MODES:
+            before = ka.launches[mode]
+            kern = ka.composite_ablate(*args, mode)
+            check(ka.launches[mode] == before + 1, f"{name} {mode}: no launch")
+            ablation_agreement(f"test size {name}", mode, kern,
+                               ka.composite_ablate_plain(*args, mode),
+                               full_width=False)
+        fori = ka.composite_fwd_fori(*args)
+        fwd = composite.composite_fwd(*args)
+        err, _ = compare(fori, composite_tiles_plain(*args))
+        same = torch.equal(fori[0], fwd[0]) and torch.equal(fori[1], fwd[1])
+        print(f"test size {name} fori: max_abs_diff vs plain={err:.3e}, "
+              f"bit-identical to composite_fwd: {same}")
+        check(same, f"{name}: fori differs from the forward kernel")
+        check(err <= TOL_TEST, f"{name}: fori vs plain {err} > {TOL_TEST}")
+
+
 def bwd_agreement(kern, plain):
     """(max abs diff, entries off by more than 1e-5 + 1e-3 |plain|, relative
     L2 error of each of the 10 rows) of the backward kernel's output against
@@ -293,6 +301,43 @@ def bwd_agreement(kern, plain):
               / torch.linalg.norm(plain, dim=1).clamp_min(1e-30))
     return (float(diff.max()), int((diff > 1e-5 + 1e-3 * plain.abs()).sum()),
             rel_l2.tolist())
+
+
+def loss_cotangents(args, static, gt):
+    """The backward kernel's inputs for `args`: the forward kernel's output
+    and the photometric loss's cotangents of it against `gt`, as a
+    training step (no background) gives them."""
+    import torch
+    from bags_tpu_torch.raster import composite, tiles
+    from bags_tpu_torch.train.losses import photometric_loss
+
+    with torch.no_grad():
+        color, t_final = composite.composite_fwd(*args)
+    c4 = color.requires_grad_(True)
+    img = tiles.tiles_to_image(c4.transpose(1, 2)[..., :3], args[3], args[4],
+                               static.width, static.height)
+    g_color = torch.autograd.grad(photometric_loss(img, gt), c4)[0].contiguous()
+    return (*args, g_color, torch.zeros_like(t_final), color.detach(), t_final)
+
+
+def bwd_full_width_check(label, bwd_args):
+    """The backward kernel against `composite_bwd_plain` at the full-width
+    criterion: relative L2 error of each of the 10 rows <= 1e-4 and at most
+    1e-4 of the entries off by more than 1e-5 + 1e-3 |plain|. Returns the
+    max abs difference."""
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.tiles import composite_bwd_plain
+
+    kern = composite.composite_bwd(*bwd_args)
+    plain = composite_bwd_plain(*bwd_args)
+    err, off, rel_l2 = bwd_agreement(kern, plain)
+    print(f"{label}: instances={bwd_args[0].shape[1]} max_abs_diff={err:.3e} "
+          f"max |plain|={float(plain.abs().max()):.3e} entries off by > "
+          f"1e-5 + 1e-3|plain|: {off} of {plain.numel()}; relative L2 per row "
+          + " ".join(f"{x:.2e}" for x in rel_l2))
+    check(max(rel_l2) <= 1e-4, f"{label}: relative L2 {rel_l2} > 1e-4")
+    check(off <= 1e-4 * plain.numel(), f"{label}: {off} entries off")
+    return err
 
 
 def camera_grad_check(device):
@@ -421,15 +466,17 @@ def write_dataset(device):
 def render_path(model, data, scene, device):
     """Slice 1's main path, the render CLI on the PLY model, and its checks
     and timings (step 5). Returns the forward kernel's entry of the kernels
-    line."""
+    line and view 0's compositing inputs."""
     import torch
     from bags_tpu_torch.cli import render as render_cli
     from bags_tpu_torch.model.gaussians import load_ply
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.render import RenderConfig, render
     from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.utils.profiling import (bound, fwd_bytes, fwd_ops,
+                                                pair_counts, timed)
 
-    argv = ["-m", model, "-s", data, "--ply_only", "--eval", "--sh_degree", "3",
+    argv =["-m", model, "-s", data, "--ply_only", "--eval", "--sh_degree", "3",
             "--device", "cuda"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -471,8 +518,8 @@ def render_path(model, data, scene, device):
             view_ms = (time.perf_counter() - t0) * 1e3
             launched = composite.fwd_launches - before
             rows, bins, tx, ty = frame(g, alive, cam, scene.static, 3)
-            k_ms = sync_ms(lambda: composite.composite_fwd(
-                rows, bins.tile_start, bins.tile_count, tx, ty), 10)
+            k_ms = timed(lambda: composite.composite_fwd(
+                rows, bins.tile_start, bins.tile_count, tx, ty), device, 10)
             print(f"view {i}: instances={bins.n_instances} max_tile="
                   f"{int(bins.tile_count.max())} render_ms={view_ms:.3f} "
                   f"kernel_ms={k_ms:.4f} launches={launched}")
@@ -483,21 +530,14 @@ def render_path(model, data, scene, device):
         rows, bins, tx, ty = frame(g, alive, cams[0], scene.static, 3)
         kern = composite.composite_fwd(rows, bins.tile_start, bins.tile_count, tx, ty)
         plain = composite_tiles_plain(rows, bins.tile_start, bins.tile_count, tx, ty)
-        torch.cuda.synchronize()
-        err, pix = compare(kern, plain)
-        frac = float((pix > 2e-5).float().mean())
-        print(f"view 0 kernel vs plain: max_abs_diff={err:.3e}, "
-              f"share of pixels off by > 2e-5: {frac:.3e}")
-        check(err <= 1e-3, f"full width: max abs diff {err} > 1e-3")
-        check(frac <= 1e-4, f"full width: {frac} of pixels off by > 2e-5")
-        kernel_ms = sync_ms(lambda: composite.composite_fwd(
-            rows, bins.tile_start, bins.tile_count, tx, ty), 20)
-        plain_ms = sync_ms(lambda: composite_tiles_plain(
-            rows, bins.tile_start, bins.tile_count, tx, ty), 2)
+        err = fwd_agreement("view 0", kern, plain)
+        del kern, plain
+        kernel_ms = timed(lambda: composite.composite_fwd(
+            rows, bins.tile_start, bins.tile_count, tx, ty), device, 20)
+        plain_ms = timed(lambda: composite_tiles_plain(
+            rows, bins.tile_start, bins.tile_count, tx, ty), device, 3)
         counts = pair_counts(rows, bins.tile_start, bins.tile_count, tx, ty)
-        num_tiles = tx * ty
-        n_bytes = 10 * 4 * bins.n_instances + 2 * 4 * num_tiles \
-            + 5 * 4 * 256 * num_tiles
+        n_bytes = fwd_bytes(bins.n_instances, tx * ty)
         bound_ms, bound_by = bound(n_bytes, fwd_ops(counts))
         print(f"view 0 forward bound: {n_bytes} bytes, {counts[0]} pair visits, "
               f"{fwd_ops(counts)} FP32 ops -> {bound_ms:.4f} ms ({bound_by}); "
@@ -524,13 +564,189 @@ def render_path(model, data, scene, device):
             render_cli.save_png(os.path.join(WORK, "timing.png"), img)
             tick("png_write")
         print("render stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    return {"name": "composite_fwd", "route": "cuda",
+    view0 = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    return view0, {"name": "composite_fwd", "route": "cuda",
             "source": "bags_tpu_torch/csrc/composite_fwd.cu",
             "replaces": "bags_tpu/raster/pallas_raster.py:227",
             "launches": None, "launches_by_path": {"render_cli": cli_launches},
             "max_abs_err": err, "max_abs_diff": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def ablation_full_width(view0, fwd_entry):
+    """The four ablation kernels and fori on view 0 of the render path:
+    each against its plain version, its time, the plain version's and its
+    bound; fori bit-identical to the forward kernel and timed beside it,
+    in turns (step 5). Returns the kernels line's entries of the ablation
+    kernel (mode "full" in the headline numbers, every mode under "modes")
+    and of fori."""
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.tools import kernablate as ka
+    from bags_tpu_torch.utils.profiling import (ablate_ops, bound, fwd_bytes,
+                                                pair_counts, timed)
+
+    rows, _, _, tx, ty = view0
+    n_bytes = fwd_bytes(rows.shape[1], tx * ty)
+    counts = pair_counts(*view0, terminate=False)
+    # o >= 0 and power <= 0 make no_transcendental's alpha, o power, < 1/255
+    # on every pair: it accepts none.
+    check(float(rows[5].min()) >= 0.0, "negative opacity in view 0")
+    print(f"view 0 ablation pairs (visited, power <= 0, alpha >= 1/255): {counts}")
+    modes = {}
+    with torch.no_grad():
+        for mode in ka.MODES:
+            err = ablation_agreement("view 0", mode, ka.composite_ablate(*view0, mode),
+                                     ka.composite_ablate_plain(*view0, mode),
+                                     full_width=True)
+            ms = timed(lambda: ka.composite_ablate(*view0, mode), "cuda", 20)
+            plain_ms = timed(lambda: ka.composite_ablate_plain(*view0, mode),
+                             "cuda", 3)
+            ops = ablate_ops(counts, mode,
+                             accepted=0 if mode == "no_transcendental" else None)
+            bound_ms, bound_by = bound(n_bytes, ops)
+            modes[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+            print(f"view 0 {mode}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} bytes, {ops} ops)")
+        fori = ka.composite_fwd_fori(*view0)
+        fwd = composite.composite_fwd(*view0)
+        same = torch.equal(fori[0], fwd[0]) and torch.equal(fori[1], fwd[1])
+        check(same, "view 0: fori differs from the forward kernel")
+        fori_err = fwd_agreement("view 0 fori", fori, composite_tiles_plain(*view0))
+        del fori, fwd
+        plain_ms = timed(lambda: composite_tiles_plain(*view0), "cuda", 3)
+        times = {"fwd": [], "fori": []}
+        for which in ("fwd", "fori", "fori", "fwd"):
+            fn = composite.composite_fwd if which == "fwd" else ka.composite_fwd_fori
+            times[which].append(timed(lambda: fn(*view0), "cuda", 20))
+    fori_ms = sum(times["fori"]) / 2
+    print(f"view 0 fori: bit-identical to composite_fwd: {same}; fori ms "
+          f"{times['fori']} vs composite_fwd ms {times['fwd']} (in turns); "
+          f"plain {plain_ms:.3f} ms")
+    ablate = {"name": "composite_ablate", "route": "cuda",
+              "source": "bags_tpu_torch/csrc/composite_ablate.cu",
+              "replaces": "tools/kernablate.py:46", "launches": None,
+              "headline_mode": "full", **modes["full"], "library_ms": None,
+              "modes": modes}
+    # fori computes the forward's function bit for bit (checked above), so
+    # its bound is the forward's on the same inputs.
+    fori_entry = {"name": "composite_fwd_fori", "route": "cuda",
+                  "source": "bags_tpu_torch/csrc/composite_ablate.cu",
+                  "replaces": "tools/kernablate.py:181", "launches": None,
+                  "max_abs_err": fori_err,
+                  "identical_to_composite_fwd": same, "ms": fori_ms,
+                  "composite_fwd_ms": sum(times["fwd"]) / 2,
+                  "plain_ms": plain_ms, "bound_ms": fwd_entry["bound_ms"],
+                  "bound_by": fwd_entry["bound_by"],
+                  "bound_from": "composite_fwd (the same function and inputs)",
+                  "library_ms": None}
+    return ablate, fori_entry
+
+
+def tools_workload_checks(device):
+    """Every kernel the tools launch, held against its plain version at the
+    tools' own workload (their default flags; step 10): the forward and
+    fori kernels against `composite_tiles_plain` and the backward kernel
+    against `composite_bwd_plain` (with the cotangents of the profiled
+    step's loss against its zero GT) at the full-width criteria, fori bit
+    for bit against the forward kernel, and each ablation mode against
+    `composite_ablate_plain` as at full width. Returns {kernel entry name:
+    max abs difference}, the ablation modes under "composite_ablate:<mode>"."""
+    import torch
+    from bags_tpu_torch.cli import profile as profile_cli
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.tools import kernablate as ka
+    from bags_tpu_torch.utils.profiling import toy_workload
+
+    flags = profile_cli.parse_args([])
+    sc, _, bins, rows, tx, ty = toy_workload(flags.n, flags.size,
+                                             flags.max_instances, device)
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    label = f"tools' workload ({bins.n_instances} instances, {tx * ty} tiles)"
+    errs = {}
+    with torch.no_grad():
+        plain = composite_tiles_plain(*args)
+        fwd = composite.composite_fwd(*args)
+        errs["composite_fwd"] = fwd_agreement(f"{label} composite_fwd", fwd, plain)
+        fori = ka.composite_fwd_fori(*args)
+        errs["composite_fwd_fori"] = fwd_agreement(f"{label} fori", fori, plain)
+        check(torch.equal(fori[0], fwd[0]) and torch.equal(fori[1], fwd[1]),
+              f"{label}: fori differs from the forward kernel")
+        del plain, fwd, fori
+        for mode in ka.MODES:
+            errs[f"composite_ablate:{mode}"] = ablation_agreement(
+                label, mode, ka.composite_ablate(*args, mode),
+                ka.composite_ablate_plain(*args, mode), full_width=True)
+    gt = torch.zeros((3, flags.size, flags.size), device=device)
+    bwd_args = loss_cotangents(args, sc["static"], gt)
+    with torch.no_grad():
+        errs["composite_bwd"] = bwd_full_width_check(f"{label} backward", bwd_args)
+    return errs
+
+
+def tools_path(device):
+    """This slice's main path: the profiling tools at their defaults, each
+    with every launch count set to 0 just before it and read just after
+    (step 10): the profile CLI with a trace, stagebench, kernablate and
+    kernablate real. Checks that each tool launched its kernels, that the
+    profiled step is finite and that the trace names both compositing
+    kernels and every stage. Returns {tool: launch counts}."""
+    import math
+
+    import torch
+    from bags_tpu_torch.cli import profile as profile_cli
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import kernablate as ka
+    from bags_tpu_torch.tools import stagebench
+
+    runs = {"profile": (profile_cli.main, ["--trace", os.path.join(WORK, "trace")]),
+            "stagebench": (stagebench.main, []),
+            "kernablate": (ka.main, []),
+            "kernablate_real": (ka.main, ["real"])}
+    launches, results = {}, {}
+    for tool, (fn, argv) in runs.items():
+        composite.fwd_launches = composite.bwd_launches = 0
+        ka.launches.update({k: 0 for k in ka.launches})
+        print(f"--- {tool} {' '.join(argv)}")
+        t0 = time.perf_counter()
+        results[tool] = fn(argv)
+        torch.cuda.synchronize()
+        launches[tool] = {"composite_fwd": composite.fwd_launches,
+                          "composite_bwd": composite.bwd_launches,
+                          **{("composite_fwd_fori" if k == "fori" else
+                              f"composite_ablate:{k}"): v
+                             for k, v in ka.launches.items()}}
+        print(f"{tool}: {time.perf_counter() - t0:.1f} s, launches {launches[tool]}")
+    for tool in ("profile", "stagebench"):
+        check(launches[tool]["composite_fwd"] > 0 and launches[tool]["composite_bwd"] > 0,
+              f"{tool}: launches {launches[tool]}")
+    for mode in ka.MODES:
+        check(launches["kernablate"][f"composite_ablate:{mode}"] > 0,
+              f"kernablate: {mode} not launched")
+    check(launches["kernablate_real"]["composite_fwd_fori"] > 0
+          and launches["kernablate_real"]["composite_fwd"] > 0,
+          f"kernablate real: launches {launches['kernablate_real']}")
+    real = results["kernablate_real"]
+    check(real["dcolor"] == 0.0 and real["dt"] == 0.0,
+          f"kernablate real: fori differs from the forward kernel: {real}")
+    prof = results["profile"]
+    check(math.isfinite(float(prof["loss"]))
+          and all(bool(torch.isfinite(g).all()) for g in prof["grads"]),
+          "profile: non-finite loss or gradient")
+    check(all(math.isfinite(v) for k, v in results["stagebench"].items()),
+          "stagebench: non-finite time")
+
+    trace = prof["trace_summary"]
+    for k in ("composite_fwd_kernel", "composite_bwd_kernel"):
+        check(any(k in n for n in trace["kernel_ms"]),
+              f"trace: no {k} among {len(trace['kernel_ms'])} kernels")
+    for stage in stagebench.STAGES:
+        check(f"step/{stage}" in trace["stages"], f"trace: no step/{stage} label")
+    return launches
 
 
 def train_path(data):
@@ -627,42 +843,21 @@ def backward_full_width(state, scene, device):
     the plain version; times and bound (step 7). Returns its entry of the
     kernels line."""
     import torch
-    from bags_tpu_torch.raster import composite, tiles
+    from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.tiles import composite_bwd_plain
-    from bags_tpu_torch.train.losses import photometric_loss
+    from bags_tpu_torch.utils.profiling import bound, bwd_bytes, bwd_ops, pair_counts, timed
 
-    g, alive = state.g, state.alive
-    bg = torch.zeros(3, device=device)
     with torch.no_grad():
-        rows, bins, tx, ty = frame(g, alive, state.cams[0], scene.static, 0)
-        args = (rows, bins.tile_start, bins.tile_count, tx, ty)
-        color, t_final = composite.composite_fwd(*args)
-    c4, tf = color.requires_grad_(True), t_final.requires_grad_(True)
-    out = c4.transpose(1, 2)
-    img = tiles.tiles_to_image(out[..., :3] + tf[..., None] * bg, tx, ty,
-                               scene.static.width, scene.static.height)
-    loss = photometric_loss(img, scene.train_image(0))
-    g_color, g_t = (x.contiguous() for x in torch.autograd.grad(loss, [c4, tf]))
-    color, t_final = color.detach(), t_final.detach()
-    bwd_args = (*args, g_color, g_t, color, t_final)
+        rows, bins, tx, ty = frame(state.g, state.alive, state.cams[0],
+                                   scene.static, 0)
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    bwd_args = loss_cotangents(args, scene.static, scene.train_image(0))
     with torch.no_grad():
-        kern = composite.composite_bwd(*bwd_args)
-        plain = composite_bwd_plain(*bwd_args)
-        err, off, rel_l2 = bwd_agreement(kern, plain)
-        print(f"full-width backward: instances={bins.n_instances} "
-              f"max_abs_diff={err:.3e} max |plain|={float(plain.abs().max()):.3e} "
-              f"entries off by > 1e-5 + 1e-3|plain|: {off} of {plain.numel()}; "
-              f"relative L2 per row " + " ".join(f"{x:.2e}" for x in rel_l2))
-        check(max(rel_l2) <= 1e-4, f"full width backward: relative L2 {rel_l2} > 1e-4")
-        check(off <= 1e-4 * plain.numel(), f"full width backward: {off} entries off")
-        kernel_ms = sync_ms(lambda: composite.composite_bwd(*bwd_args), 20)
-        plain_ms = sync_ms(lambda: composite_bwd_plain(*bwd_args), 2)
+        err = bwd_full_width_check("full-width backward", bwd_args)
+        kernel_ms = timed(lambda: composite.composite_bwd(*bwd_args), device, 20)
+        plain_ms = timed(lambda: composite_bwd_plain(*bwd_args), device, 3)
         counts = pair_counts(*args)
-        num_tiles = tx * ty
-        # rows read and d_rows written (10 floats each per instance), tile
-        # ranges, and per pixel g (4), C_total (4), T_final and g_T
-        n_bytes = 2 * 10 * 4 * bins.n_instances + 2 * 4 * num_tiles \
-            + 10 * 4 * 256 * num_tiles
+        n_bytes = bwd_bytes(bins.n_instances, tx * ty)
         bound_ms, bound_by = bound(n_bytes, bwd_ops(counts))
         print(f"full-width backward bound: {n_bytes} bytes, pairs (visited, "
               f"power <= 0, alpha >= 1/255, included) {counts}, "
@@ -676,93 +871,6 @@ def backward_full_width(state, scene, device):
             "bound_by": bound_by, "library_ms": None}
 
 
-def train_step_stages(state, scene, cfg, device):
-    """Where a full-width training step's time goes (step 9): the stages of
-    `train_step` run one by one with a synchronise after each, the backward
-    kernel timed apart, then `train_step` itself and the peak memory."""
-    import dataclasses
-
-    import torch
-    from bags_tpu_torch.core.camera import CameraParams
-    from bags_tpu_torch.core.projection import project_gaussians
-    from bags_tpu_torch.raster import binning, composite, tiles
-    from bags_tpu_torch.raster.render import (RenderConfig, build_packet_table,
-                                              gather_rows)
-    from bags_tpu_torch.train.loop import train_step
-    from bags_tpu_torch.train.losses import photometric_loss
-    from bags_tpu_torch.train.optim import CAMERA_FIELDS, camera_lrs, row_adam_update
-
-    g, alive, cams = state.g, state.alive, state.cams
-    static, idx = scene.static, 0
-    gt = scene.train_image(idx)
-    bg = torch.zeros(3, device=device)
-    rcfg = RenderConfig(sh_degree=0)
-    stages = {}
-    for rep in range(3):
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def tick(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stages[name] = (now - last[0]) * 1e3
-            last[0] = now
-
-        row = {f: getattr(cams, f)[idx].detach().clone().requires_grad_(True)
-               for f in CAMERA_FIELDS}
-        cam = CameraParams(q_init=cams.q_init[idx], t_init=cams.t_init[idx], **row)
-        probe = torch.zeros((state.capacity, 2), device=device, requires_grad=True)
-        absp = torch.zeros_like(probe, requires_grad=True)
-        proj = project_gaussians(g.xyz, g.scaling(), g.quats, g.opacity(alive),
-                                 g.sh_coeffs(), cam, static, 0, align=state.align)
-        x2d, y2d = proj.x2d + probe[:, 0], proj.y2d + probe[:, 1]
-        tick("projection_sh")
-        tx, ty = tiles.tile_grid(static.width, static.height)
-        bins = binning.bin_gaussians(
-            dataclasses.replace(proj, x2d=x2d, y2d=y2d).detach(), tx, ty)
-        tick("binning")
-        rows = gather_rows(build_packet_table(proj, x2d, y2d), absp, bins.gauss_id)
-        tick("gather")
-        color4, t_final = composite.composite_fwd(rows, bins.tile_start,
-                                                  bins.tile_count, tx, ty)
-        tick("forward_kernel")
-        out = color4.transpose(1, 2)
-        img = tiles.tiles_to_image(out[..., :3] + t_final[..., None] * bg, tx, ty,
-                                   static.width, static.height)
-        loss = photometric_loss(img, gt, cfg.opt.lambda_dssim)
-        tick("loss")
-        state.g_opt.zero_grad()
-        loss.backward()
-        tick("backward_all")
-        state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
-        state.g_opt.step()
-        row_adam_update(cams, state.cam_opt, {f: row[f].grad for f in row}, idx,
-                        camera_lrs(cfg.calib, state.step))
-        tick("optimizer")
-    with torch.no_grad():
-        g_c = torch.randn_like(color4)
-        g_tf = torch.randn_like(t_final)
-        bwd_ms = sync_ms(lambda: composite.composite_bwd(
-            rows.detach(), bins.tile_start, bins.tile_count, tx, ty, g_c, g_tf,
-            color4.detach(), t_final.detach()), 10)
-    stages["backward_kernel"] = bwd_ms
-    stages["backward_rest"] = stages["backward_all"] - bwd_ms
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        train_step(state, gt, idx, bg, static, rcfg, cfg)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print("train step stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    print(f"train step: {bins.n_instances} instances, {int(alive.sum())} live of "
-          f"{state.capacity}; step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
-          + f"; peak memory {peak:.2f} GiB")
-
-
 def main():
     import torch
 
@@ -773,6 +881,8 @@ def main():
     sys.path.insert(0, REPO)
     from bags_tpu_torch.cli import render as render_cli
     from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import kernablate as ka
+    from bags_tpu_torch.tools import stagebench
 
     device = torch.device("cuda")
     t_all = time.perf_counter()
@@ -784,7 +894,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build both kernels, in parallel
+    # 2. build the three kernel sources, in parallel
     t0 = time.perf_counter()
     sos = composite.build()
     for name, so in sos.items():
@@ -795,8 +905,9 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"build wall time {time.perf_counter() - t0:.2f} s")
 
-    # 3. both kernels against their plain versions at test sizes
+    # 3. the kernels against their plain versions at test sizes
     test_size_checks(device)
+    ablation_test_size(device)
     # 4. camera gradients on the card, pose recovery
     camera_grad_check(device)
     pose_recovery(device)
@@ -807,8 +918,10 @@ def main():
     model, data, scene = write_dataset(device)
     print(f"wrote {N_GAUSS}-Gaussian PLY and {N_CAMS}-camera dataset at "
           f"{WIDTH}x{HEIGHT} in {time.perf_counter() - t0:.1f} s")
-    fwd_entry = render_path(model, data, scene, device)
+    view0, fwd_entry = render_path(model, data, scene, device)
     del scene
+    ablate_entry, fori_entry = ablation_full_width(view0, fwd_entry)
+    del view0
 
     # 6. the training path at full width
     train_model, train_fwd, train_bwd = train_path(data)
@@ -822,12 +935,27 @@ def main():
     # 8. restore in the render CLI, test-time pose optimisation
     restore_path(train_model, data)
     # 9. where a training step's time goes
-    train_step_stages(state, scene, cfg, device)
+    stagebench.train_step_stages(state, scene, cfg, device)
     del state, scene
+    # 10. this slice's main path: the profiling tools
+    launches = tools_path(device)
+    errs = tools_workload_checks(device)
+    for entry in (fwd_entry, bwd_entry, fori_entry):
+        entry["max_abs_err_tools_workload"] = errs[entry["name"]]
+    ablate_entry["max_abs_err_tools_workload"] = {
+        m: errs[f"composite_ablate:{m}"] for m in ka.MODES}
+    for entry in (fwd_entry, bwd_entry):
+        entry.setdefault("launches_by_path", {"train_cli": entry["launches"]})
+        for tool in ("profile", "stagebench", "kernablate_real"):
+            entry["launches_by_path"][tool] = launches[tool][entry["name"]]
+    ablate_entry["launches_by_mode"] = {
+        m: launches["kernablate"][f"composite_ablate:{m}"] for m in ka.MODES}
+    ablate_entry["launches"] = sum(ablate_entry["launches_by_mode"].values())
+    fori_entry["launches"] = launches["kernablate_real"]["composite_fwd_fori"]
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry]}))
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, ablate_entry, fori_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

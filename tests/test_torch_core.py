@@ -194,10 +194,12 @@ def test_distance_to_camera_matches_jax(toy_pair):
 
 
 def test_port_is_isolated_from_jax():
-    """Importing every module of the port loads neither jax nor bags_tpu,
-    and no source names them."""
+    """Importing every module of the port and `chip_smoke.py` loads neither
+    jax nor bags_tpu, and no source names them."""
     pkg = os.path.join(REPO, "bags_tpu_torch")
-    mods = []
+    mods = ["chip_smoke"]
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        assert not FORBIDDEN_IMPORT.search(f.read()), "chip_smoke.py"
     for root, _, files in os.walk(pkg):
         for fn in files:
             if fn.endswith(".py"):

@@ -14,6 +14,7 @@ import torch
 from bags_tpu_torch.core.projection import project_gaussians
 from bags_tpu_torch.raster import binning, composite, tiles
 from bags_tpu_torch.raster.render import RenderConfig, build_packet_table, render
+from bags_tpu_torch.tools import kernablate
 from bags_tpu_torch.utils.testing import make_toy_scene
 
 pytestmark = pytest.mark.gpu
@@ -144,3 +145,41 @@ def test_wrapper_rejects_mixed_devices(cuda):
     rows, bins, tx, ty = _rows(_scene("toy_sh3", cuda))
     with pytest.raises(ValueError, match="tile_start"):
         composite.composite_fwd(rows, bins.tile_start.cpu(), bins.tile_count, tx, ty)
+
+
+@pytest.mark.parametrize("mode", kernablate.MODES)
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_ablation_kernel_matches_plain(cuda, name, mode):
+    """Each ablation mode's kernel against `composite_ablate_plain`: t
+    exactly 1 and no_transcendental's colour exactly 0 in both; dma_only
+    within 1e-6 of max |plain| (its weight, power, is unbounded), no_scan
+    and full within 2e-5."""
+    rows, bins, tx, ty = _rows(_scene(name, cuda))
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    before = kernablate.launches[mode]
+    kc, kt = kernablate.composite_ablate(*args, mode)
+    assert kernablate.launches[mode] == before + 1
+    pc, pt = kernablate.composite_ablate_plain(*args, mode)
+    assert bool((kt == 1).all()) and bool((pt == 1).all())
+    if mode == "no_transcendental":
+        assert float(kc.abs().max()) == 0.0 and float(pc.abs().max()) == 0.0
+    elif mode == "dma_only":
+        assert float((kc - pc).abs().max()) <= 1e-6 * float(pc.abs().max())
+    else:
+        torch.testing.assert_close(kc, pc, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_fori_kernel_is_the_forward(cuda, name):
+    """The fori kernel is bit-identical to the forward kernel and within the
+    forward's 2e-5 of `composite_tiles_plain`."""
+    rows, bins, tx, ty = _rows(_scene(name, cuda))
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    before = kernablate.launches["fori"]
+    fc, ft = kernablate.composite_fwd_fori(*args)
+    assert kernablate.launches["fori"] == before + 1
+    kc, kt = composite.composite_fwd(*args)
+    assert torch.equal(fc, kc) and torch.equal(ft, kt)
+    pc, pt = tiles.composite_tiles_plain(*args)
+    torch.testing.assert_close(fc, pc, atol=2e-5, rtol=0)
+    torch.testing.assert_close(ft, pt, atol=2e-5, rtol=0)
