@@ -16,7 +16,9 @@ plain C entry point, at first use, into `build/` at the repository root (one
 nvcc process per source, all started together), and loaded with ctypes. On
 the card `composite_fwd` is differentiable through `_CompositeFwd`, whose
 backward launches the backward kernel; on the CPU autograd differentiates
-the plain forward.
+the plain forward. The backward kernel writes only the slots its tile
+reaches, so `_launch_bwd` allocates d_rows zero-filled; `bwd_kernel_info`
+reads its resident blocks per SM, registers and shared memory on the card.
 """
 
 from __future__ import annotations
@@ -43,13 +45,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _TILES = [_P, _I64, _P, _P, _I, _I, _P, _P, _P]
-# C entry point `{name}_launch` -> (source, argument types)
+# C function -> (source, argument types); each returns a cudaError_t.
 _ARGTYPES = {
-    "composite_fwd": ("composite_fwd", _TILES),
-    "composite_bwd": ("composite_bwd",
-                      [_P, _I64, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]),
-    "composite_ablate": ("composite_ablate", [_I] + _TILES),
-    "composite_fwd_fori": ("composite_ablate", _TILES),
+    "composite_fwd_launch": ("composite_fwd", _TILES),
+    "composite_bwd_launch": ("composite_bwd",
+                             [_P, _I64, _P, _P, _P, _I, _I] + [_P] * 6),
+    "composite_bwd_info": ("composite_bwd", [_P]),
+    "composite_ablate_launch": ("composite_ablate", [_I] + _TILES),
+    "composite_fwd_fori_launch": ("composite_ablate", _TILES),
 }
 
 # Kernel launches made through `composite_fwd` / `composite_bwd` in this
@@ -111,16 +114,17 @@ def build(names=tuple(SOURCES)) -> dict:
     return outs
 
 
-def _load(name: str):
-    """The C entry point `{name}_launch`, its source built at first use."""
-    if name not in _libs:
-        source, argtypes = _ARGTYPES[name]
+def _load(symbol: str):
+    """The C function `symbol` (a key of `_ARGTYPES`), its source built at
+    first use."""
+    if symbol not in _libs:
+        source, argtypes = _ARGTYPES[symbol]
         lib = ctypes.CDLL(str(build((source,))[source]))
-        fn = getattr(lib, f"{name}_launch")
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return _libs[name]
+        _libs[symbol] = fn
+    return _libs[symbol]
 
 
 def check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y):
@@ -161,7 +165,7 @@ def launch_tiles(name, rows, tile_start, tile_count, tiles_x, tiles_y, *lead):
     """Launch the per-tile kernel `name` (arguments as `composite_fwd`,
     after the int arguments `lead`) on the current stream; raise if the
     launch fails. Returns color+depth (T, 4, 256) and t (T, 256)."""
-    fn = _load(name)
+    fn = _load(f"{name}_launch")
     num_tiles = tiles_x * tiles_y
     color = torch.empty((num_tiles, 4, NPIX), dtype=torch.float32,
                         device=rows.device)
@@ -188,20 +192,36 @@ def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y):
 def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
                 color, t_final):
     global bwd_launches
-    fn = _load("composite_bwd")
+    fn = _load("composite_bwd_launch")
     num_tiles = tiles_x * tiles_y
     d_rows = torch.zeros((F_ACTIVE, rows.shape[1]), dtype=torch.float32,
                          device=rows.device)
+    # Tiles with the most instances first: the last wave of blocks then
+    # holds the short tiles.
+    order = torch.argsort(tile_count, descending=True, stable=True).int()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
-                 tile_count.data_ptr(), tiles_x, num_tiles, g_color.data_ptr(),
-                 g_t.data_ptr(), color.data_ptr(), t_final.data_ptr(),
-                 d_rows.data_ptr(), stream)
+                 tile_count.data_ptr(), order.data_ptr(), tiles_x, num_tiles,
+                 g_color.data_ptr(), g_t.data_ptr(), color.data_ptr(),
+                 t_final.data_ptr(), d_rows.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: cudaError {err}")
     bwd_launches += 1
     return d_rows
+
+
+def bwd_kernel_info() -> dict:
+    """The backward kernel's resources on the current card: resident blocks
+    per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` at 256 threads a
+    block), registers per thread, shared memory per block (bytes) and local
+    memory per thread (bytes; spills)."""
+    out = (ctypes.c_int * 4)()
+    err = _load("composite_bwd_info")(out)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd_info failed: cudaError {err}")
+    return dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"),
+                    out))
 
 
 class _CompositeFwd(torch.autograd.Function):

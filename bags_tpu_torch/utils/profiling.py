@@ -10,8 +10,10 @@ the persistent compilation cache) have no counterpart here: CUDA events
 time the device directly.
 
 Roofline: the H100's published peaks, the FP32 operations per
-pixel-instance pair counted from the kernels' code, `pair_counts` (the
-pairs the kernels' loops visit on given inputs) and `bound`, the least time
+pixel-instance pair that the compositing needs, counted from the kernels'
+code, `pair_counts` (the pairs the kernels' loops visit on given inputs, and
+of those the pairs whose work is needed: no pair outside its instance's
+footprint and no exp below p_min, `footprint`) and `bound`, the least time
 the card could take for them. A bound is a count over a published peak, so
 it is the same whichever device ran the count.
 
@@ -23,26 +25,35 @@ one square view, binned under an instance budget.
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 (non-tensor) FLOP/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
-# FP32 operations per pixel-instance pair the kernel's loop visits: every
-# visited pair computes dx, dy and power and tests power (12); with
-# power <= 0 it takes exp, multiplies, clamps and tests alpha (4 more);
-# with alpha >= 1/255 it forms and tests T (1 - alpha) (3 more); and a pair
-# that is composited forms w and four fused multiply-adds (9 more).
+# FP32 operations per pixel-instance pair that the compositing needs (the
+# bounds of the forward and backward kernels charge only these): a pair
+# inside its instance's footprint (`footprint`) computes dx, dy and power
+# and tests power (12); a pair outside it fails the alpha test for certain
+# and needs nothing. A pair with p_min <= power <= 0 takes exp, multiplies,
+# clamps and tests alpha (4 more); below p_min it fails for certain without
+# the exp. With alpha >= 1/255 it forms and tests T (1 - alpha) (3 more); and
+# a pair that is composited forms w and four fused multiply-adds (9 more).
 OPS_VISITED, OPS_EXP, OPS_ALPHA, OPS_COMPOSITED = 12, 4, 3, 9
-# The backward kernel replays the same visits (12, 4 and 3 as above); an
-# included pair then forms w (1), per channel the prefix, the suffix term,
-# <g, c> and the colour gradient g w (9 x 4), dL/dalpha (6), the clamp test
-# (1), d_power (1), the six geometric gradients (4 + 4 + 3 + 3 + 3 + 1) and
-# the sum of all ten over the tile's pixels (10).
+# The backward replays the same pairs (12, 4 and 3 as above); an included
+# pair then forms w (1), per channel the prefix, the suffix term, <g, c> and
+# the colour gradient g w (9 x 4), dL/dalpha (6), the clamp test (1),
+# d_power (1), the six geometric gradients (4 + 4 + 3 + 3 + 3 + 1) and the
+# sum of all ten over the tile's pixels (10).
 OPS_BWD_INCLUDED = 1 + 36 + 6 + 1 + 1 + 18 + 10
+# delta of the exp skip, p_min = log(ALPHA_MIN / o) - delta, and the
+# footprint's ellipse Q <= FOOTPRINT_K (-p_min), both as
+# csrc/composite_bwd.cu sets them (its head derives them).
+P_MIN_MARGIN, FOOTPRINT_K = 1e-3, 2.04
 # The ablation kernels (csrc/composite_ablate.cu) visit every pair of a
-# tile, with no termination. Per mode, operations per (visited pair, pair
+# tile, with no termination: each exists to time one piece of the loop on
+# every pair, so their bounds charge that piece on every pair. Per mode, operations per (visited pair, pair
 # with power <= 0, pair with alpha >= 1/255): dma_only forms power (11) and
 # adds colour w and w (9) on every pair; the other modes test power (12),
 # then form alpha and test it (3, no_transcendental: o power, min, test; 4
@@ -82,13 +93,47 @@ def timed(fn, device, reps=7):
     return sorted(times)[len(times) // 2]
 
 
+class Pairs(NamedTuple):
+    """Pixel-instance pair counts of `pair_counts`."""
+    visited: int       # pairs the kernels' loops reach
+    power_le_0: int    # of those, power <= 0
+    alpha_pass: int    # of those, alpha >= 1/255
+    included: int      # of those, composited (not the one that ends a pixel)
+    in_footprint: int  # visited pairs inside the instance's footprint
+    exp_needed: int    # visited pairs with p_min <= power <= 0
+
+
+def footprint(f):
+    """Per instance of rows `f` (F >= 6, ...): (p_min, ex, ey). A pair whose
+    power lies below p_min fails the alpha test for certain, and so does
+    every pixel with |px - mx| > ex or |py - my| > ey: the box around the
+    ellipse Q <= 2.04 (-p_min) (Q = -2 power), widened by 1e-3 relative and
+    1e-3 pixels, as csrc/composite_bwd.cu computes them in float32. ex = ey
+    = -1 (no pixel) where p_min > 0, and inf (every pixel) where the conic
+    is not clearly positive definite or p_min is NaN."""
+    from ..raster import tiles as tl
+
+    a, b, c, o = f[tl.R_CA], f[tl.R_CB], f[tl.R_CC], f[tl.R_O]
+    p_min = torch.log(tl.ALPHA_MIN / o) - P_MIN_MARGIN
+    det = a * c - b * b
+    k = -FOOTPRINT_K * p_min
+    ex = torch.sqrt(k * c / det) * 1.001 + 1e-3
+    ey = torch.sqrt(k * a / det) * 1.001 + 1e-3
+    everywhere = ~((a > 0) & (c > 0) & (det > 1e-3 * a * c)) | torch.isnan(p_min)
+    inf = torch.full_like(ex, float("inf"))
+    ex, ey = (torch.where(p_min > 0, -1.0, torch.where(everywhere, inf, e))
+              for e in (ex, ey))
+    return p_min, ex, ey
+
+
 def pair_counts(rows, tile_start, tile_count, tiles_x, tiles_y, chunk=32,
-                terminate=True):
+                terminate=True) -> Pairs:
     """Pixel-instance pairs the kernels' loops visit on these inputs: each
     pixel walks its tile's instances up to and including the one that ends
     it (T (1 - alpha) < 1e-4), or to the tile's end; with `terminate` False,
-    every instance of its tile (the ablation kernels). Returns (visited,
-    with power <= 0, with alpha >= 1/255, included)."""
+    every instance of its tile (the ablation kernels). Of the visited pairs,
+    `Pairs` also counts those the compositing needs to replay and to take
+    the exp of (`footprint`)."""
     from ..raster import tiles as tl
 
     px, py = tl.tile_pixel_coords(tiles_x, tiles_y, rows.device)
@@ -96,7 +141,7 @@ def pair_counts(rows, tile_start, tile_count, tiles_x, tiles_y, chunk=32,
     t_run = torch.ones_like(px)
     done = torch.zeros_like(px, dtype=torch.bool)
     offs = torch.arange(chunk, device=rows.device)
-    counts = [0, 0, 0, 0]
+    counts = [0] * len(Pairs._fields)
     for k in range(0, int(count.max()) if count.numel() else 0, chunk):
         act = torch.nonzero((count > k) & ~done.all(dim=1)).squeeze(1)
         if act.numel() == 0:
@@ -117,33 +162,34 @@ def pair_counts(rows, tile_start, tile_count, tiles_x, tiles_y, chunk=32,
         killed_before = (torch.cumsum(kill.int(), dim=1) - kill.int()) > 0
         visited = in_range[..., None] & ~killed_before & ~done[act][:, None, :]
         inc = visited & ok & ~kill
-        for i, m in enumerate((visited, visited & (power <= 0), visited & ok, inc)):
+        p_min, ex, ey = (x[..., None] for x in footprint(f))
+        in_box = (dx.abs() <= ex) & (dy.abs() <= ey)
+        needs_exp = (power <= 0) & ~(power < p_min)
+        for i, m in enumerate((visited, visited & (power <= 0), visited & ok, inc,
+                               visited & in_box, visited & needs_exp)):
             counts[i] += int(m.sum())
         t_run[act] = t_run[act] * torch.where(inc, 1.0 - a, 1.0).prod(dim=1)
         done[act] |= (kill & visited).any(dim=1)
-    return tuple(counts)
+    return Pairs(*counts)
 
 
-def fwd_ops(counts):
-    visited, exp, alpha, inc = counts
-    return (OPS_VISITED * visited + OPS_EXP * exp + OPS_ALPHA * alpha
-            + OPS_COMPOSITED * inc)
+def fwd_ops(counts: Pairs):
+    return (OPS_VISITED * counts.in_footprint + OPS_EXP * counts.exp_needed
+            + OPS_ALPHA * counts.alpha_pass + OPS_COMPOSITED * counts.included)
 
 
-def bwd_ops(counts):
-    visited, exp, alpha, inc = counts
-    return (OPS_VISITED * visited + OPS_EXP * exp + OPS_ALPHA * alpha
-            + OPS_BWD_INCLUDED * inc)
+def bwd_ops(counts: Pairs):
+    return (OPS_VISITED * counts.in_footprint + OPS_EXP * counts.exp_needed
+            + OPS_ALPHA * counts.alpha_pass + OPS_BWD_INCLUDED * counts.included)
 
 
 def ablate_ops(counts, mode, accepted=None):
     """Operations of ablation mode `mode` on `pair_counts(...,
     terminate=False)`; `accepted` overrides the pairs past the alpha test
     (no_transcendental's alpha is o power, not o exp(power))."""
-    visited, exp, alpha, _ = counts
     per_visit, per_exp, per_accept = OPS_ABLATE[mode]
-    return (per_visit * visited + per_exp * exp
-            + per_accept * (alpha if accepted is None else accepted))
+    return (per_visit * counts.visited + per_exp * counts.power_le_0
+            + per_accept * (counts.alpha_pass if accepted is None else accepted))
 
 
 def fwd_bytes(n_instances, num_tiles):

@@ -118,3 +118,49 @@ def write_image(path: str, img: np.ndarray) -> None:
     from PIL import Image
 
     Image.fromarray(img).save(path)
+
+
+def alpha_boundary_rows(rows: torch.Tensor, tile_start: torch.Tensor,
+                        tile_count: torch.Tensor, tiles_x: int, tiles_y: int,
+                        seed: int = 0, rel: float = 1e-6
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Instance rows whose opacities put one pair of every instance on the
+    edge of the compositing's alpha test.
+
+    For each instance, the pixel of its tile where its power is largest
+    (formed in the compositors' operation order) gets o exp(power) =
+    (1/255)(1 + eps), eps uniform in (-rel, rel) from numpy's `seed`: about
+    half of these pairs pass the test and half fail. The tile's other pixels
+    have powers no higher, almost all far lower, so they fail, and an
+    instance's gradient is nonzero exactly when its edge pair passes.
+    Instances whose largest power is above 0 or would need o > 1 get o = 0
+    and fail everywhere. Returns (a copy of rows with the new opacity row,
+    alpha (M,): o exp(power) of each instance's edge pair in float32 as the
+    compositors form it, 0 where o = 0)."""
+    from ..raster import tiles
+
+    count = tile_count.long()
+    tile_of = torch.repeat_interleave(
+        torch.arange(tiles_x * tiles_y, device=rows.device), count)
+    first = torch.cumsum(count, 0) - count
+    slots = tile_start.long()[tile_of] + (
+        torch.arange(tile_of.numel(), device=rows.device) - first[tile_of])
+    px, py = tiles.tile_pixel_coords(tiles_x, tiles_y, rows.device)
+    f = rows[:, slots]
+    dx = px[tile_of] - f[tiles.R_MX][:, None]
+    dy = py[tile_of] - f[tiles.R_MY][:, None]
+    power = -0.5 * (f[tiles.R_CA][:, None] * dx * dx
+                    + f[tiles.R_CC][:, None] * dy * dy) \
+        - f[tiles.R_CB][:, None] * dx * dy
+    top = power.max(dim=1).values
+    eps = np.random.default_rng(seed).uniform(-rel, rel, slots.numel())
+    top64 = top.double().cpu().numpy()
+    with np.errstate(over="ignore"):
+        o = tiles.ALPHA_MIN * np.exp(-top64) * (1.0 + eps)
+    o = torch.as_tensor(np.where((top64 <= 0.0) & (o <= 1.0), o, 0.0)
+                        .astype(np.float32), device=rows.device)
+    out = rows.clone()
+    out[tiles.R_O, slots] = o
+    alpha = torch.zeros(rows.shape[1], dtype=torch.float32, device=rows.device)
+    alpha[slots] = o * torch.exp(top)
+    return out, alpha

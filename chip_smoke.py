@@ -9,14 +9,19 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
   2. builds the three kernel sources of `bags_tpu_torch/csrc` (compositing
      forward, backward, and the profiling tool's ablation and fori
      kernels; one nvcc per source, in parallel) and prints each build's
-     time and ptxas report;
+     time and ptxas report, and the backward kernel's resident blocks per
+     SM, registers and shared memory per block;
   3. holds the forward kernel against its plain PyTorch version at test
      sizes (toy scene, unaligned-spill scene, a tile with > 4096 instances):
      max abs difference <= 2e-5; and the backward kernel against
      `composite_bwd_plain` on the same scenes with seeded random cotangents:
      |kernel - plain| <= 1e-5 + 1e-3 |plain| element-wise, and on the dense
      tile, where float32 rounding alone exceeds that, the full-width
-     criterion of step 7; then the four ablation kernels against
+     criterion of step 7; two backward launches bit-identical; the
+     backward kernel on each scene's alpha-edge variant (one pair of every
+     instance within 1e-6 relative of 1/255, `alpha_boundary_rows`): the
+     same nonzero entries as the plain version and the element-wise
+     criterion; then the four ablation kernels against
      `composite_ablate_plain` (`ablation_agreement` states the tolerances)
      and the fori kernel bit-identical to the forward kernel and within
      2e-5 of `composite_tiles_plain`;
@@ -44,7 +49,8 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
   7. the backward kernel at full width on a training view of the trained
      model against `composite_bwd_plain`: relative L2 error of each of the
      10 rows <= 1e-4 and at most 1e-4 of the entries off by more than
-     1e-5 + 1e-3 |plain|; its time, the plain version's and the bound;
+     1e-5 + 1e-3 |plain|, two launches bit-identical; its time, the plain
+     version's, the bound and its resources;
   8. the render CLI restores `chkpnt30.npz` (optimised cameras, no
      `--ply_only`) and renders both splits with `--optim_test_pose_iter 5`;
   9. where a full-width training step's time goes, by stage, the whole
@@ -58,7 +64,8 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      about 540k instances), every kernel they launch against its plain
      version: the forward and fori kernels at step 5's full-width
      criterion, fori bit-identical to the forward kernel, each ablation
-     mode as on view 0, and the backward kernel at step 7's criterion;
+     mode as on view 0, and the backward kernel at step 7's criterion,
+     bit-identical across two launches;
  11. prints the kernels line (JSON) and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
@@ -207,22 +214,65 @@ def test_size_checks(device):
         d_f64 = composite_bwd_plain(rows.double(), *args[1:], g_color.double(),
                                     g_t.double(), color.double(), t_final.double())
         err, off, rel_l2 = bwd_agreement(d_kern, d_plain)
-        own = float((d_plain.double() - d_f64).abs().max())
+        same = torch.equal(d_kern, composite.composite_bwd(*args, g_color, g_t,
+                                                           color, t_final))
+        own, own_off, own_l2 = bwd_agreement(d_plain.double(), d_f64)
+        _, kern_off, kern_l2 = bwd_agreement(d_kern.double(), d_f64)
         print(f"test size {name} backward: max_abs_diff={err:.3e} max |plain|="
               f"{float(d_plain.abs().max()):.3e}, entries off by > 1e-5 + "
-              f"1e-3|plain|: {off}, relative L2 per row <= {max(rel_l2):.2e}; "
-              f"plain vs its float64 replay {own:.3e}")
+              f"1e-3|plain|: {off} of {d_plain.numel()}, relative L2 per row <= "
+              f"{max(rel_l2):.2e}; against the plain version's float64 replay "
+              f"(same criterion): plain max_abs_diff={own:.3e}, {own_off} off, "
+              f"relative L2 <= {max(own_l2):.2e}; kernel {kern_off} off, "
+              f"relative L2 <= {max(kern_l2):.2e}; two launches bit-identical: "
+              f"{same}")
+        check(same, f"{name}: two backward launches differ")
         if name == "dense_tile_gt_4096":
             # ~1,000 low-opacity instances per pixel: the opacity row sums 256
             # pixel terms of size ~1 that cancel to ~1e-3, and float32 moves
-            # single entries past 1e-5 (the plain version's own error, just
-            # printed), so the full-width criterion holds here.
+            # single entries past 1e-5 (the plain version's own error against
+            # its float64 replay, just printed), so the full-width criterion
+            # holds here: at most 1e-4 of the entries off.
             check(max(rel_l2) <= 1e-4 and off <= 1e-4 * d_plain.numel(),
                   f"{name}: backward kernel vs plain: relative L2 {rel_l2}, "
                   f"{off} entries off")
         else:
             check(off == 0, f"{name}: {off} backward entries off by more than "
                             f"1e-5 + 1e-3 |plain|")
+        alpha_edge_check(name, args, device)
+
+
+def alpha_edge_check(name, args, device):
+    """The backward kernel on `args` with opacities that put one pair of
+    every instance within 1e-6 relative of 1/255 (`alpha_boundary_rows`):
+    its nonzero entries exactly the plain version's, every entry within
+    1e-5 + 1e-3 |plain| (step 3). A pair its exp skip dropped wrongly would
+    leave a zero where the plain version has a value."""
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.tiles import ALPHA_MIN, composite_bwd_plain
+    from bags_tpu_torch.utils.testing import alpha_boundary_rows
+
+    gen = torch.Generator().manual_seed(1)
+    rows, alpha = alpha_boundary_rows(*args)
+    above = int(((alpha >= ALPHA_MIN) & (alpha <= ALPHA_MIN * (1 + 1e-6))).sum())
+    below = int(((alpha < ALPHA_MIN) & (alpha >= ALPHA_MIN * (1 - 1e-6))).sum())
+    edge = (rows, *args[1:])
+    color, t_final = composite.composite_fwd(*edge)
+    g_color = torch.randn(color.shape, generator=gen).to(device)
+    g_t = torch.randn(t_final.shape, generator=gen).to(device)
+    kern = composite.composite_bwd(*edge, g_color, g_t, color, t_final)
+    plain = composite_bwd_plain(*edge, g_color, g_t, color, t_final)
+    err, off, _ = bwd_agreement(kern, plain)
+    same_zeros = torch.equal(kern != 0, plain != 0)
+    print(f"test size {name} alpha edge: edge pairs within 1e-6 of 1/255: "
+          f"{above} above, {below} below; nonzero entries kernel "
+          f"{int((kern != 0).sum())} plain {int((plain != 0).sum())}, same set: "
+          f"{same_zeros}; max_abs_diff={err:.3e}, entries off: {off}")
+    check(min(above, below) >= 0.2 * rows.shape[1],
+          f"{name} alpha edge: {above} / {below} edge pairs")
+    check(same_zeros, f"{name} alpha edge: nonzero sets differ")
+    check(off == 0, f"{name} alpha edge: {off} entries off")
 
 
 def ablation_agreement(label, mode, kern, plain, full_width):
@@ -323,20 +373,24 @@ def loss_cotangents(args, static, gt):
 def bwd_full_width_check(label, bwd_args):
     """The backward kernel against `composite_bwd_plain` at the full-width
     criterion: relative L2 error of each of the 10 rows <= 1e-4 and at most
-    1e-4 of the entries off by more than 1e-5 + 1e-3 |plain|. Returns the
-    max abs difference."""
+    1e-4 of the entries off by more than 1e-5 + 1e-3 |plain|; and two
+    launches bit-identical. Returns the max abs difference."""
+    import torch
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.tiles import composite_bwd_plain
 
     kern = composite.composite_bwd(*bwd_args)
     plain = composite_bwd_plain(*bwd_args)
     err, off, rel_l2 = bwd_agreement(kern, plain)
+    same = torch.equal(kern, composite.composite_bwd(*bwd_args))
     print(f"{label}: instances={bwd_args[0].shape[1]} max_abs_diff={err:.3e} "
           f"max |plain|={float(plain.abs().max()):.3e} entries off by > "
           f"1e-5 + 1e-3|plain|: {off} of {plain.numel()}; relative L2 per row "
-          + " ".join(f"{x:.2e}" for x in rel_l2))
+          + " ".join(f"{x:.2e}" for x in rel_l2)
+          + f"; two launches bit-identical: {same}")
     check(max(rel_l2) <= 1e-4, f"{label}: relative L2 {rel_l2} > 1e-4")
     check(off <= 1e-4 * plain.numel(), f"{label}: {off} entries off")
+    check(same, f"{label}: two launches differ")
     return err
 
 
@@ -539,7 +593,7 @@ def render_path(model, data, scene, device):
         counts = pair_counts(rows, bins.tile_start, bins.tile_count, tx, ty)
         n_bytes = fwd_bytes(bins.n_instances, tx * ty)
         bound_ms, bound_by = bound(n_bytes, fwd_ops(counts))
-        print(f"view 0 forward bound: {n_bytes} bytes, {counts[0]} pair visits, "
+        print(f"view 0 forward bound: {n_bytes} bytes, pairs {counts}, "
               f"{fwd_ops(counts)} FP32 ops -> {bound_ms:.4f} ms ({bound_by}); "
               f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms")
 
@@ -840,7 +894,8 @@ def restore_path(model, data):
 
 def backward_full_width(state, scene, device):
     """The backward kernel on a training view of the trained model against
-    the plain version; times and bound (step 7). Returns its entry of the
+    the plain version, twice bit for bit; its time, the plain version's, the
+    bound and the kernel's resources (step 7). Returns its entry of the
     kernels line."""
     import torch
     from bags_tpu_torch.raster import composite
@@ -852,6 +907,7 @@ def backward_full_width(state, scene, device):
                                    scene.static, 0)
     args = (rows, bins.tile_start, bins.tile_count, tx, ty)
     bwd_args = loss_cotangents(args, scene.static, scene.train_image(0))
+    info = composite.bwd_kernel_info()
     with torch.no_grad():
         err = bwd_full_width_check("full-width backward", bwd_args)
         kernel_ms = timed(lambda: composite.composite_bwd(*bwd_args), device, 20)
@@ -859,16 +915,15 @@ def backward_full_width(state, scene, device):
         counts = pair_counts(*args)
         n_bytes = bwd_bytes(bins.n_instances, tx * ty)
         bound_ms, bound_by = bound(n_bytes, bwd_ops(counts))
-        print(f"full-width backward bound: {n_bytes} bytes, pairs (visited, "
-              f"power <= 0, alpha >= 1/255, included) {counts}, "
+        print(f"full-width backward bound: {n_bytes} bytes, pairs {counts}, "
               f"{bwd_ops(counts)} FP32 ops -> {bound_ms:.4f} ms ({bound_by}); "
-              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return {"name": "composite_bwd", "route": "cuda",
+              f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; {info}")
+    return {"name": "composite_bwd", "route": "cuda", "design": "PR 4",
             "source": "bags_tpu_torch/csrc/composite_bwd.cu",
             "replaces": "bags_tpu/raster/pallas_raster.py:334",
             "launches": None, "max_abs_err": err, "max_abs_diff": err,
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, **info}
 
 
 def main():
@@ -904,6 +959,7 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"build wall time {time.perf_counter() - t0:.2f} s")
+    print(f"composite_bwd resources: {composite.bwd_kernel_info()}")
 
     # 3. the kernels against their plain versions at test sizes
     test_size_checks(device)

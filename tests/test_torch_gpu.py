@@ -15,7 +15,7 @@ from bags_tpu_torch.core.projection import project_gaussians
 from bags_tpu_torch.raster import binning, composite, tiles
 from bags_tpu_torch.raster.render import RenderConfig, build_packet_table, render
 from bags_tpu_torch.tools import kernablate
-from bags_tpu_torch.utils.testing import make_toy_scene
+from bags_tpu_torch.utils.testing import alpha_boundary_rows, make_toy_scene
 
 pytestmark = pytest.mark.gpu
 ARGS = ("xyz", "scales", "quats", "opacity", "sh_coeffs")
@@ -111,6 +111,48 @@ def test_backward_kernel_matches_plain(cuda, name):
         assert float(off.float().mean()) <= 1e-4
     else:
         assert not bool(off.any())
+
+
+def _bwd_inputs(rows, bins, tx, ty, device, seed=1):
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    color, t_final = composite.composite_fwd(*args)
+    gen = torch.Generator().manual_seed(seed)
+    g_color = torch.randn(color.shape, generator=gen).to(device)
+    g_t = torch.randn(t_final.shape, generator=gen).to(device)
+    return (*args, g_color, g_t, color, t_final)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_backward_kernel_is_deterministic(cuda, name):
+    """Two launches of the backward kernel on the same inputs are bit for
+    bit equal: its sums over a tile's pixels run in a fixed order and use
+    no atomics."""
+    bwd_args = _bwd_inputs(*_rows(_scene(name, cuda)), cuda)
+    first = composite.composite_bwd(*bwd_args)
+    second = composite.composite_bwd(*bwd_args)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_backward_kernel_alpha_edge(cuda, name):
+    """Opacities that put one pair of every instance within 1e-6 relative
+    of the alpha test's 1/255, on both sides (`alpha_boundary_rows`): the
+    kernel's nonzero entries are exactly the plain version's, and every
+    entry is within 1e-5 + 1e-3 |plain|. A pair that the kernel's exp skip
+    dropped wrongly would leave its instance's gradient 0."""
+    rows, bins, tx, ty = _rows(_scene(name, cuda))
+    rows, alpha = alpha_boundary_rows(rows, bins.tile_start, bins.tile_count,
+                                      tx, ty)
+    a_min = tiles.ALPHA_MIN
+    above = int(((alpha >= a_min) & (alpha <= a_min * (1 + 1e-6))).sum())
+    below = int(((alpha < a_min) & (alpha >= a_min * (1 - 1e-6))).sum())
+    assert min(above, below) >= 0.2 * rows.shape[1]
+    bwd_args = _bwd_inputs(rows, bins, tx, ty, cuda)
+    got = composite.composite_bwd(*bwd_args)
+    plain = tiles.composite_bwd_plain(*bwd_args)
+    assert torch.equal(got != 0, plain != 0)
+    assert torch.equal((plain != 0).any(dim=0), alpha >= a_min)
+    assert not bool(((got - plain).abs() > 1e-5 + 1e-3 * plain.abs()).any())
 
 
 def test_render_grads_on_card_match_cpu(cuda):

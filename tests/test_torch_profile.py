@@ -120,9 +120,10 @@ def test_stagebench_prints_every_stage(capsys):
 
 def _brute_force_pairs(rows, start, count, tiles_x, tiles_y, terminate):
     """Pixel by pixel, instance by instance, as the kernels' loops walk."""
-    counts = [0, 0, 0, 0]
+    counts = [0] * 6
     px, py = tiles.tile_pixel_coords(tiles_x, tiles_y)
     f = rows.numpy()
+    p_min, ex, ey = (x.numpy() for x in profiling.footprint(rows))
     for t in range(tiles_x * tiles_y):
         for p in range(tiles.NPIX):
             T = np.float32(1.0)
@@ -131,6 +132,8 @@ def _brute_force_pairs(rows, start, count, tiles_x, tiles_y, terminate):
                 dx, dy = np.float32(px[t, p] - mx), np.float32(py[t, p] - my)
                 power = np.float32(-0.5) * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
                 counts[0] += 1
+                counts[4] += bool(abs(dx) <= ex[i] and abs(dy) <= ey[i])
+                counts[5] += bool(power <= 0 and not power < p_min[i])
                 if power > 0:
                     continue
                 counts[1] += 1
@@ -160,13 +163,98 @@ def test_pair_counts_match_brute_force(terminate):
     got = profiling.pair_counts(*args, terminate=terminate)
     assert got == _brute_force_pairs(*args, terminate)
     # terminated pixels stop short of their tile's end
-    assert got[2] > got[3] if terminate else got[2] == got[3]
+    assert got.alpha_pass > got.included if terminate else \
+        got.alpha_pass == got.included
+    # the footprint and the exp skip leave out pairs, never one that passes
+    assert got.visited > got.in_footprint >= got.exp_needed >= got.alpha_pass
+
+
+def _synthetic_rows(n, seed):
+    """`n` instances in one 16x16 tile: centres in and around it, conics from
+    radii of 0.3 to 40 pixels at any angle with correlation up to 0.9995,
+    and opacities log-uniform from 1e-5 to 1, with a few at 0."""
+    rng = np.random.default_rng(seed)
+    r1, r2 = np.exp(rng.uniform(np.log(0.3), np.log(40.0), (2, n)))
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    # inverse covariance of radii r1, r2 rotated by th
+    a = c * c / r1 ** 2 + s * s / r2 ** 2
+    cc = s * s / r1 ** 2 + c * c / r2 ** 2
+    b = c * s * (1 / r1 ** 2 - 1 / r2 ** 2)
+    o = np.exp(rng.uniform(np.log(1e-5), 0.0, n))
+    o[::97] = 0.0
+    rows = np.zeros((10, n), np.float32)
+    rows[tiles.R_MX], rows[tiles.R_MY] = rng.uniform(-30, 46, (2, n))
+    rows[tiles.R_CA], rows[tiles.R_CB], rows[tiles.R_CC] = a, b, cc
+    rows[tiles.R_O] = o
+    return (torch.as_tensor(rows), torch.zeros(1, dtype=torch.int32),
+            torch.tensor([n], dtype=torch.int32), 1, 1)
+
+
+def _scene_rows(n, width, height, seed, scale_range, opacity=None, sh_degree=0):
+    sc = tmake(n=n, width=width, height=height, seed=seed, sh_degree=sh_degree,
+               scale_range=scale_range, device="cpu")
+    if opacity is not None:
+        sc["opacity"] = torch.as_tensor(np.random.default_rng(seed).uniform(
+            *opacity, n).astype(np.float32))
+    proj = project_gaussians(*[sc[k] for k in stagebench.ARGS], sc["cam"],
+                             sc["static"], sh_degree)
+    tx, ty = tiles.tile_grid(width, height)
+    bins = binning.bin_gaussians(proj, tx, ty)
+    rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(1, bins.gauss_id)
+    return rows, bins.tile_start, bins.tile_count, tx, ty
+
+
+SKIP_SCENES = {
+    # chip_smoke.py's three test-size scenes and the profile tools' workload
+    # at the CPU tests' size
+    "toy_64x48_700": lambda: _scene_rows(700, 64, 48, 0, (0.02, 0.12), sh_degree=3),
+    "unaligned_spill": lambda: _scene_rows(700, 64, 48, 21, (0.01, 0.05)),
+    "dense_low_opacity": lambda: _scene_rows(4000, 32, 32, 5, (0.1, 0.4),
+                                             opacity=(0.005, 0.02)),
+    "tools_workload": lambda: _scene_rows(N, SIZE, SIZE, 0, (0.008, 0.035),
+                                          sh_degree=3),
+    "synthetic_anisotropic": lambda: _synthetic_rows(20000, 3),
+}
+
+
+@pytest.mark.parametrize("scene", sorted(SKIP_SCENES))
+def test_exp_skip_and_footprint_change_no_decision(scene):
+    """The backward kernel's exp skip and footprint cull (derived at the
+    head of csrc/composite_bwd.cu, mirrored by `profiling.footprint`), on
+    every pair of every instance with its tile's pixels, power formed in
+    the compositors' operation order in float32: a pair below p_min fails
+    the alpha test, and a pair at or above p_min lies inside the footprint.
+    The skip and the cull both leave out a share of the pairs."""
+    rows, start, count, tx, ty = SKIP_SCENES[scene]()
+    n = int(count.sum())
+    tile_of = torch.repeat_interleave(torch.arange(tx * ty), count.long())
+    first = torch.cumsum(count.long(), 0) - count.long()
+    slots = start.long()[tile_of] + torch.arange(n) - first[tile_of]
+    px, py = tiles.tile_pixel_coords(tx, ty)
+    f = rows[:, slots]
+    dx = px[tile_of] - f[tiles.R_MX][:, None]
+    dy = py[tile_of] - f[tiles.R_MY][:, None]
+    power = -0.5 * (f[tiles.R_CA][:, None] * dx * dx
+                    + f[tiles.R_CC][:, None] * dy * dy) \
+        - f[tiles.R_CB][:, None] * dx * dy
+    alpha = torch.clamp(f[tiles.R_O][:, None] * torch.exp(power), max=tiles.ALPHA_MAX)
+    passes = (alpha >= tiles.ALPHA_MIN) & (power <= 0)
+    p_min, ex, ey = (x[:, None] for x in profiling.footprint(f))
+    below = power < p_min
+    in_box = (dx.abs() <= ex) & (dy.abs() <= ey)
+    assert int(passes.sum()) > 0
+    assert not bool((below & passes).any())
+    assert not bool((~below & ~in_box).any())
+    assert int(below.sum()) > 0.3 * below.numel()
+    assert int((~in_box).sum()) > 0.1 * in_box.numel()
 
 
 def test_ops_bytes_and_bound_by_hand():
-    counts = (10, 8, 5, 3)   # visited, power <= 0, alpha >= 1/255, included
-    assert profiling.fwd_ops(counts) == 12 * 10 + 4 * 8 + 3 * 5 + 9 * 3 == 194
-    assert profiling.bwd_ops(counts) == 12 * 10 + 4 * 8 + 3 * 5 + 73 * 3 == 386
+    # visited, power <= 0, alpha >= 1/255, included, in footprint, exp needed
+    counts = profiling.Pairs(10, 8, 5, 3, 7, 6)
+    assert profiling.fwd_ops(counts) == 12 * 7 + 4 * 6 + 3 * 5 + 9 * 3 == 150
+    assert profiling.bwd_ops(counts) == 12 * 7 + 4 * 6 + 3 * 5 + 73 * 3 == 342
     assert profiling.ablate_ops(counts, "dma_only") == 20 * 10
     assert profiling.ablate_ops(counts, "no_scan") == 12 * 10 + 4 * 8 + 12 * 5
     assert profiling.ablate_ops(counts, "full") == 12 * 10 + 4 * 8 + 13 * 5
