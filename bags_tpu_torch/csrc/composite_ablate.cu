@@ -1,5 +1,5 @@
-// Ablation variants of the forward compositing loop, for timing only, and
-// the forward kernel with its early exit as a compute skip; Hopper (sm_90a).
+// Ablation variants of the forward compositing loop, for timing only;
+// Hopper (sm_90a).
 //
 // composite_ablate_launch replaces the TPU kernel
 // tools/kernablate.py::main's make_kernel(mode) `kern`. Its four modes are
@@ -26,35 +26,24 @@
 // TPU tool as here, so its time is that of the loop with every pair
 // rejected after the alpha test.
 //
-// composite_fwd_fori_launch replaces tools/kernablate.py::real_variants's
-// `fori_kernel`: composite_fwd.cu's function, bit for bit, but the block does
-// not leave once every pixel is done. It loads every remaining batch into
-// shared memory and skips only the pixel loop, so its time beside
-// composite_fwd's prices the early exit.
-//
-// What bounds them on this card: as composite_fwd.cu, each instance's 10
-// features are read once per tile (40 B) and each pixel writes 20 B, while
-// every pixel visits every instance of its tile (the ablation modes) or its
-// instances up to its termination (fori), at 12-29 FP32 operations a visit:
-// operations, several times over the bytes. The design is the forward
-// kernel's: one 256-thread block per 16x16 tile, one thread per pixel,
-// features in shared memory, a sequential per-pixel loop; the ablation modes
-// keep its operation order (__fmul_rn, __fadd_rn, expf, log1pf, no fast
-// math) and its branch structure, apart from the piece each mode removes.
+// What bounds them on this card: each instance's 10 features are read once
+// per tile (40 B) and each pixel writes 20 B, while every pixel visits every
+// instance of its tile at 12-29 FP32 operations a visit: operations, several
+// times over the bytes. The design is the forward kernel's first one: one
+// 256-thread block per 16x16 tile, one thread per pixel, features in shared
+// memory (one float array per row), a sequential per-pixel loop over every
+// instance; the modes keep that loop's operation order (__fmul_rn,
+// __fadd_rn, expf, log1pf, no fast math) and its branch structure, apart
+// from the piece each mode removes. They do not follow the redesigned
+// forward (composite_fwd.cu: instances as three float4, the exp skip, the
+// footprint cull, the per-warp walk), so they price the pieces of that
+// first loop.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int TILE_W = 16;
-constexpr int TILE_H = 16;
-constexpr int NPIX = TILE_W * TILE_H;
 constexpr int CHUNK = 128;  // slots per ablation chunk (the TPU's lane width)
-constexpr int NFEAT = 10;   // mx my ca cb cc o r g b depth
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1e-4f;
 
 enum Mode { DMA_ONLY = 0, NO_TRANSCENDENTAL = 1, NO_SCAN = 2, FULL = 3 };
 
@@ -144,66 +133,6 @@ composite_ablate_kernel(const float* __restrict__ rows, int64_t row_stride,
   out_t[(int64_t)tile * NPIX + tid] = t_out;
 }
 
-// composite_fwd.cu's kernel with the block exit removed: every batch is
-// loaded, a done pixel skips the batch's loop. Each pixel's arithmetic is
-// the forward's, in the same order, so the outputs are bit-identical.
-__global__ void __launch_bounds__(NPIX)
-composite_fwd_fori_kernel(const float* __restrict__ rows, int64_t row_stride,
-                          const int* __restrict__ tile_start,
-                          const int* __restrict__ tile_count, int tiles_x,
-                          float* __restrict__ out_color,
-                          float* __restrict__ out_t) {
-  __shared__ float feat[NFEAT][NPIX];
-
-  const int tile = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float px = (float)((tile % tiles_x) * TILE_W + tid % TILE_W);
-  const float py = (float)((tile / tiles_x) * TILE_H + tid / TILE_W);
-  const int64_t start = tile_start[tile];
-  const int count = tile_count[tile];
-
-  float T = 1.0f;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  int done = 0;
-
-  for (int base = 0; base < count; base += NPIX) {
-    __syncthreads();  // the previous batch's reads are done
-    const int n = min(NPIX, count - base);
-    if (tid < n) {
-      const float* src = rows + start + base + tid;
-#pragma unroll
-      for (int f = 0; f < NFEAT; ++f) feat[f][tid] = src[f * row_stride];
-    }
-    __syncthreads();
-    if (done) continue;
-
-    float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int j = 0; j < n; ++j) {
-      const float power = gauss_power(px, py, feat[0], feat[1], feat[2],
-                                      feat[3], feat[4], j);
-      if (power > 0.0f) continue;
-      const float alpha = fminf(ALPHA_MAX, __fmul_rn(feat[5][j], expf(power)));
-      if (alpha < ALPHA_MIN) continue;
-      const float test_T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
-      if (test_T < T_EPS) {
-        done = 1;
-        break;
-      }
-      const float w = __fmul_rn(alpha, T);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[c] = fmaf(feat[6 + c][j], w, part[c]);
-      T = test_T;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[c] += part[c];
-  }
-
-  float* color = out_color + (int64_t)tile * 4 * NPIX;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) color[c * NPIX + tid] = acc[c];
-  out_t[(int64_t)tile * NPIX + tid] = T;
-}
-
 }  // namespace
 
 // rows: (F >= 10, row_stride) float32, feature-major; tile_start and
@@ -244,20 +173,6 @@ extern "C" int composite_ablate_launch(int mode, const void* rows,
       break;
     default:
       return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// Arguments and outputs as composite_fwd_launch (composite_fwd.cu).
-extern "C" int composite_fwd_fori_launch(const void* rows, int64_t row_stride,
-                                         const void* tile_start,
-                                         const void* tile_count, int tiles_x,
-                                         int num_tiles, void* out_color,
-                                         void* out_t, void* stream) {
-  if (num_tiles > 0) {
-    composite_fwd_fori_kernel<<<num_tiles, NPIX, 0, (cudaStream_t)stream>>>(
-        (const float*)rows, row_stride, (const int*)tile_start,
-        (const int*)tile_count, tiles_x, (float*)out_color, (float*)out_t);
   }
   return (int)cudaGetLastError();
 }

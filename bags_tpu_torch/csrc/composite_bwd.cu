@@ -68,31 +68,10 @@
 // 4 blocks per SM leave 64 registers a thread, 3 blocks 80, 5 blocks 48;
 // MIN_BLOCKS = 4 was the fastest on the card (PERF.md).
 //
-// The exp skip. The exact test passes a pair when RN(o expf(power)) >=
-// A = 1/255 (float). Per instance p_min = RN(logf(RN(A / o)) - delta) with
-// delta = 1e-3. If power < p_min: e^power < e^p_min <= (A / o)
-// e^(2^-24 + 2^-17 + 2^-18 - delta), the three terms bounding the rounding
-// of A / o, logf's 1 ulp and the subtraction's half ulp (|logf| < 128 over
-// the float range, where an ulp is at most 2^-17); expf's 2 ulp add a factor
-// (1 + 2^-22); so o expf(power) < A (1 - delta + 2e-5) < A (1 - 9e-4), and
-// its product rounds below A: the pair fails, as the exact test would have
-// decided. delta is about 60 times the rounding. o = 0 (or a subnormal o
-// whose A / o overflows) gives p_min = +inf and a skip, which agrees: o G <=
-// o < A. A NaN p_min (o < 0 or NaN) skips nothing, since !(power < NaN).
-//
-// The footprint cull. power = -Q / 2 with Q = a dx^2 + 2 b dx dy + c dy^2.
-// Where the conic is positive definite with det = ac - b^2 > 1e-3 ac,
-// rho = |b| / sqrt(ac) has 1 - rho > 5e-4, and with S = a dx^2 + c dy^2,
-// |b dx dy| <= rho S / 2 and Q >= (1 - rho) S. The float power (two
-// products and a sum of non-negative terms, two products, one difference)
-// errs by at most 2.5 u S + u |power| (u = 2^-24), so power <= -Q / 2 +
-// 2.5 u Q / (1 - rho) + u Q / 2 < -0.4997 Q. Every pixel outside the
-// ellipse Q <= K = 2.04 (-p_min) therefore has power < -1.019 (-p_min) <
-// p_min: the exp skip would drop it. The ellipse lies inside |dx| <=
-// sqrt(K c / det), |dy| <= sqrt(K a / det); the computed extents err by
-// about 1e-4 relative (det's rounding over 1e-3 ac) and the comparisons by
-// half an ulp of a pixel coordinate, both inside the 1e-3 relative and 1e-3
-// pixel widening. So the cull drops only pairs the exp skip drops.
+// The exp skip and the footprint cull (below p_min a pair fails the alpha
+// test for certain; outside an instance's footprint every pair lies below
+// p_min) are derived in composite_common.cuh, which both kernels include.
+// The backward's warps are 16x2 pixel blocks (rows 2w and 2w + 1).
 //
 // Rounding: the replay uses the forward's operation order (__fmul_rn /
 // __fadd_rn, expf, the same per-batch partial sums), so the include
@@ -100,32 +79,14 @@
 // per-channel prefix equals the forward's C_total at the last included
 // instance: its suffix is exactly 0 rather than cancellation noise.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "composite_common.cuh"
 
 namespace {
 
-constexpr int TILE_W = 16;
-constexpr int TILE_H = 16;
-constexpr int NPIX = TILE_W * TILE_H;
-constexpr int NWARP = NPIX / 32;
-constexpr int NFEAT = 10;  // mx my ca cb cc o r g b depth
 constexpr int NGRAD = 10;  // one gradient per instance row
 constexpr int SUB = 32;    // instances per cross-warp flush
 constexpr int MIN_BLOCKS = 4;  // resident blocks per SM asked of ptxas
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1e-4f;
-constexpr float P_MIN_MARGIN = 1e-3f;  // delta of the exp skip
-constexpr unsigned FULL = 0xffffffffu;
-
-// One instance: (mx, my, ca, cb), (cc, p_min, o, warps), (r, g, b, depth),
-// `warps` being footprint_warps' mask as float bits.
-struct __align__(16) Inst {
-  float4 geo;
-  float4 opa;
-  float4 col;
-};
+constexpr int WARP_ROWS = 2;   // a warp is 16 x 2 pixels
 
 struct Shared {
   Inst inst[NPIX];
@@ -146,67 +107,25 @@ __device__ __forceinline__ float reduce_scatter(const float (&v)[NGRAD],
 #pragma unroll
   for (int k = 0; k < 5; ++k)
     a[k] = (b4 ? v[5 + k] : v[k]) +
-           __shfl_xor_sync(FULL, b4 ? v[k] : v[5 + k], 16);
+           __shfl_xor_sync(ALL_LANES, b4 ? v[k] : v[5 + k], 16);
   // b3 clear keeps a0 a1 a2 (as c0 c1 c2), b3 set keeps a3 a4 (as c0 c1)
-  const float r0 = __shfl_xor_sync(FULL, b3 ? a[0] : a[3], 8);
-  const float r1 = __shfl_xor_sync(FULL, b3 ? a[1] : a[4], 8);
-  const float r2 = __shfl_xor_sync(FULL, a[2], 8);
+  const float r0 = __shfl_xor_sync(ALL_LANES, b3 ? a[0] : a[3], 8);
+  const float r1 = __shfl_xor_sync(ALL_LANES, b3 ? a[1] : a[4], 8);
+  const float r2 = __shfl_xor_sync(ALL_LANES, a[2], 8);
   const float c0 = (b3 ? a[3] : a[0]) + r0;
   const float c1 = (b3 ? a[4] : a[1]) + r1;
   const float c2 = a[2] + r2;
   // (b3, b2) = (0, 0) keeps c0 c1 (as e0 e1); (0, 1) c2, (1, 0) c0 and
   // (1, 1) c1 (as e0)
-  const float rA = __shfl_xor_sync(FULL, b2 ? c0 : (b3 ? c1 : c2), 4);
-  const float rB = __shfl_xor_sync(FULL, c1, 4);
+  const float rA = __shfl_xor_sync(ALL_LANES, b2 ? c0 : (b3 ? c1 : c2), 4);
+  const float rB = __shfl_xor_sync(ALL_LANES, c1, 4);
   const float e0 = (b2 ? (b3 ? c1 : c2) : c0) + rA;
   const float e1 = c1 + rB;
   // (0, 0) splits e0 e1 over b1; the other groups gather e0 where b1 is clear
   const bool two = !b3 && !b2;
   const float x = ((two && b1) ? e1 : e0) +
-                  __shfl_xor_sync(FULL, (two && !b1) ? e1 : e0, 2);
-  return x + __shfl_xor_sync(FULL, x, 1);
-}
-
-// The warps of the tile at (x0, y0) that can hold a pixel whose power
-// reaches p_min (bit w: warp w, pixel rows y0 + 2w and y0 + 2w + 1): the
-// rows and columns of the bounding box of the ellipse Q <= K, with
-// Q = a dx^2 + 2 b dx dy + c dy^2 = -2 power and K = 2.04 (-p_min), widened
-// by 1e-3 relative and 1e-3 pixels. See the head of the file for why every
-// pair outside it has power < p_min as computed. A conic that is not
-// clearly positive definite (or a NaN) keeps every warp.
-__device__ __forceinline__ unsigned footprint_warps(float mx, float my,
-                                                    float a, float b, float c,
-                                                    float p_min, float x0,
-                                                    float y0) {
-  if (p_min > 0.0f) return 0u;  // every pair is below p_min
-  const float det = a * c - b * b;
-  if (!(a > 0.0f && c > 0.0f && det > 1e-3f * a * c)) return 0xffu;
-  const float k = -2.04f * p_min;
-  const float ex = sqrtf(k * c / det) * 1.001f + 1e-3f;
-  const float ey = sqrtf(k * a / det) * 1.001f + 1e-3f;
-  if (mx + ex < x0 || mx - ex > x0 + (TILE_W - 1)) return 0u;
-  unsigned warps = 0;
-#pragma unroll
-  for (int w = 0; w < NWARP; ++w) {
-    const float row = y0 + 2 * w;
-    if (!(my + ey < row || my - ey > row + 1.0f)) warps |= 1u << w;
-  }
-  return warps;
-}
-
-// Shared-memory load and store at a 32-bit address (as
-// __cvta_generic_to_shared gives it). Taking the addresses once keeps the
-// shared window's base out of the instance loop.
-__device__ __forceinline__ float4 lds4(unsigned addr) {
-  float4 x;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
-               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
-               : "r"(addr));
-  return x;
-}
-
-__device__ __forceinline__ void sts(unsigned addr, float x) {
-  asm volatile("st.shared.f32 [%0], %1;" ::"r"(addr), "f"(x) : "memory");
+                  __shfl_xor_sync(ALL_LANES, (two && !b1) ? e1 : e0, 2);
+  return x + __shfl_xor_sync(ALL_LANES, x, 1);
 }
 
 // Which of the ten sums reduce_scatter leaves in `lane` (lanes 0, 2, 4, 8,
@@ -236,10 +155,10 @@ composite_bwd_kernel(const float* __restrict__ rows, int64_t row_stride,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int slot = holder_slot(lane);
-  const unsigned inst_addr = (unsigned)__cvta_generic_to_shared(sm.inst);
+  const unsigned inst_addr = smem_addr(sm.inst);
   // This lane's sum slot of instance 0 in buffer 0 (used by holders only).
-  const unsigned red_addr = (unsigned)__cvta_generic_to_shared(
-      &sm.red[0][warp][slot < 0 ? 0 : slot][0]);
+  const unsigned red_addr =
+      smem_addr(&sm.red[0][warp][slot < 0 ? 0 : slot][0]);
   constexpr unsigned RED_BUF = sizeof(sm.red[0]);
   const float x0 = (float)((tile % tiles_x) * TILE_W);
   const float y0 = (float)((tile / tiles_x) * TILE_H);
@@ -275,9 +194,10 @@ composite_bwd_kernel(const float* __restrict__ rows, int64_t row_stride,
       float f[NFEAT];
 #pragma unroll
       for (int k = 0; k < NFEAT; ++k) f[k] = src[k * row_stride];
-      const float p_min = logf(ALPHA_MIN / f[5]) - P_MIN_MARGIN;
+      const float p_min = p_min_of(f[5]);
       const unsigned warps =
-          footprint_warps(f[0], f[1], f[2], f[3], f[4], p_min, x0, y0);
+          footprint_warps<TILE_W, WARP_ROWS>(f[0], f[1], f[2], f[3], f[4],
+                                              p_min, x0, y0);
       Inst& in = sm.inst[tid];
       in.geo = make_float4(f[0], f[1], f[2], f[3]);
       in.opa = make_float4(f[4], p_min, f[5], __uint_as_float(warps));
@@ -289,7 +209,7 @@ composite_bwd_kernel(const float* __restrict__ rows, int64_t row_stride,
     for (int sub = 0; sub < n; sub += SUB) {
       const int m = min(SUB, n - sub);
       unsigned stored = 0;  // warp-uniform
-      if (__any_sync(FULL, !done)) {
+      if (__any_sync(ALL_LANES, !done)) {
         for (int j = 0; j < m; ++j) {
           const unsigned in = inst_addr + (unsigned)(sub + j) * sizeof(Inst);
           const float4 opa = lds4(in + 16);
@@ -342,7 +262,7 @@ composite_bwd_kernel(const float* __restrict__ rows, int64_t row_stride,
               }
             }
           }
-          if (__any_sync(FULL, contrib)) {
+          if (__any_sync(ALL_LANES, contrib)) {
             const float s = reduce_scatter(v, lane);
             if (slot >= 0) sts(red_addr + buf * RED_BUF + 4u * j, s);
             stored |= 1u << j;
@@ -406,18 +326,7 @@ extern "C" int composite_bwd_launch(const void* rows, int64_t row_stride,
   return (int)cudaGetLastError();
 }
 
-// The kernel's resources on the current device: out[0] resident blocks per
-// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor at 256 threads), out[1]
-// registers per thread, out[2] shared memory per block (bytes), out[3]
-// local memory per thread (bytes; spills). Returns the cudaError_t.
+// The backward kernel's resources (kernel_info in composite_common.cuh).
 extern "C" int composite_bwd_info(int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, composite_bwd_kernel);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], composite_bwd_kernel, NPIX, 0);
-  out[1] = attr.numRegs;
-  out[2] = (int)attr.sharedSizeBytes;
-  out[3] = (int)attr.localSizeBytes;
-  return (int)err;
+  return kernel_info(composite_bwd_kernel, out);
 }

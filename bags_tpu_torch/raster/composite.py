@@ -8,17 +8,23 @@ launch the hand-written kernels `bags_tpu_torch/csrc/composite_fwd.cu` and
 `csrc/composite_bwd.cu`, or raise; for CPU tensors they run the plain
 PyTorch versions `tiles.composite_tiles_plain` and
 `tiles.composite_bwd_plain`. They never fall back from a kernel to its plain
-version. The profiling tool's kernels (`csrc/composite_ablate.cu`, wrapped in
-`bags_tpu_torch/tools/kernablate.py`) are built and launched here too.
+version. The profiling tool's kernels (the forward's no-exit twin fori in
+`csrc/composite_fwd.cu`, the ablation modes in `csrc/composite_ablate.cu`,
+wrapped in `bags_tpu_torch/tools/kernablate.py`) are built and launched here
+too.
 
 The kernels are compiled with nvcc for sm_90a into shared libraries with a
 plain C entry point, at first use, into `build/` at the repository root (one
-nvcc process per source, all started together), and loaded with ctypes. On
-the card `composite_fwd` is differentiable through `_CompositeFwd`, whose
-backward launches the backward kernel; on the CPU autograd differentiates
-the plain forward. The backward kernel writes only the slots its tile
-reaches, so `_launch_bwd` allocates d_rows zero-filled; `bwd_kernel_info`
-reads its resident blocks per SM, registers and shared memory on the card.
+nvcc process per source, all started together; the build tag hashes the
+source and every header of `csrc/`, which the sources include), and loaded
+with ctypes. Both compositing kernels take the tiles in launch order, most
+instances first (`tile_order`). On the card `composite_fwd` is
+differentiable through `_CompositeFwd`, which computes that order once per
+frame for the forward and its backward, whose kernel it launches; on the
+CPU autograd differentiates the plain forward. The backward kernel writes
+only the slots its tile reaches, so `_launch_bwd` allocates d_rows
+zero-filled. `kernel_info` reads a kernel's resident blocks per SM,
+registers, shared and local memory on the card.
 """
 
 from __future__ import annotations
@@ -44,15 +50,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# rows, row stride, tile_start, tile_count, [tile_order,] tiles_x, num_tiles,
+# then the outputs and the stream
 _TILES = [_P, _I64, _P, _P, _I, _I, _P, _P, _P]
+_ORDERED = [_P, _I64, _P, _P, _P, _I, _I, _P, _P, _P]
 # C function -> (source, argument types); each returns a cudaError_t.
 _ARGTYPES = {
-    "composite_fwd_launch": ("composite_fwd", _TILES),
+    "composite_fwd_launch": ("composite_fwd", _ORDERED),
+    "composite_fwd_fori_launch": ("composite_fwd", _ORDERED),
+    "composite_fwd_info": ("composite_fwd", [_P]),
     "composite_bwd_launch": ("composite_bwd",
                              [_P, _I64, _P, _P, _P, _I, _I] + [_P] * 6),
     "composite_bwd_info": ("composite_bwd", [_P]),
     "composite_ablate_launch": ("composite_ablate", [_I] + _TILES),
-    "composite_fwd_fori_launch": ("composite_ablate", _TILES),
 }
 
 # Kernel launches made through `composite_fwd` / `composite_bwd` in this
@@ -74,9 +84,13 @@ def _nvcc() -> str:
 
 
 def _out_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}_{tag}.so"
+    """The library of source `name`, tagged by the source, every header of
+    `csrc/` and the flags, so that editing an included header rebuilds it."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(names=tuple(SOURCES)) -> dict:
@@ -161,44 +175,54 @@ def _check_pixels(rows, num_tiles, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
-def launch_tiles(name, rows, tile_start, tile_count, tiles_x, tiles_y, *lead):
+def tile_order(tile_count: torch.Tensor) -> torch.Tensor:
+    """The tiles in launch order, the most instances first: the last wave of
+    blocks then holds the short tiles. (T,) int32."""
+    return torch.argsort(tile_count, descending=True, stable=True).int()
+
+
+def launch_tiles(name, rows, tile_start, tile_count, tiles_x, tiles_y, *lead,
+                 order=None):
     """Launch the per-tile kernel `name` (arguments as `composite_fwd`,
-    after the int arguments `lead`) on the current stream; raise if the
-    launch fails. Returns color+depth (T, 4, 256) and t (T, 256)."""
+    after the int arguments `lead`, with the launch order `order` after
+    tile_count where the kernel takes one) on the current stream; raise if
+    the launch fails. Returns color+depth (T, 4, 256) and t (T, 256)."""
     fn = _load(f"{name}_launch")
     num_tiles = tiles_x * tiles_y
     color = torch.empty((num_tiles, 4, NPIX), dtype=torch.float32,
                         device=rows.device)
     t_final = torch.empty((num_tiles, NPIX), dtype=torch.float32,
                           device=rows.device)
+    ordered = () if order is None else (order.data_ptr(),)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*lead, rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
-                 tile_count.data_ptr(), tiles_x, num_tiles, color.data_ptr(),
-                 t_final.data_ptr(), stream)
+                 tile_count.data_ptr(), *ordered, tiles_x, num_tiles,
+                 color.data_ptr(), t_final.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return color, t_final
 
 
-def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y):
+def _launch_fwd(rows, tile_start, tile_count, tiles_x, tiles_y, order):
     global fwd_launches
     out = launch_tiles("composite_fwd", rows, tile_start, tile_count, tiles_x,
-                       tiles_y)
+                       tiles_y, order=order)
     fwd_launches += 1
     return out
 
 
 def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
-                color, t_final):
+                color, t_final, order=None):
+    """The backward kernel; `order` is the forward's `tile_order`, computed
+    here where the caller has none."""
     global bwd_launches
     fn = _load("composite_bwd_launch")
     num_tiles = tiles_x * tiles_y
     d_rows = torch.zeros((F_ACTIVE, rows.shape[1]), dtype=torch.float32,
                          device=rows.device)
-    # Tiles with the most instances first: the last wave of blocks then
-    # holds the short tiles.
-    order = torch.argsort(tile_count, descending=True, stable=True).int()
+    if order is None:
+        order = tile_order(tile_count)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(rows.data_ptr(), rows.shape[1], tile_start.data_ptr(),
@@ -211,15 +235,16 @@ def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
     return d_rows
 
 
-def bwd_kernel_info() -> dict:
-    """The backward kernel's resources on the current card: resident blocks
-    per SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` at 256 threads a
-    block), registers per thread, shared memory per block (bytes) and local
+def kernel_info(name: str) -> dict:
+    """The resources of kernel `name` ("composite_fwd" or "composite_bwd") on
+    the current card: resident blocks per SM
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` at 256 threads a block),
+    registers per thread, static shared memory per block (bytes) and local
     memory per thread (bytes; spills)."""
     out = (ctypes.c_int * 4)()
-    err = _load("composite_bwd_info")(out)
+    err = _load(f"{name}_info")(out)
     if err != 0:
-        raise RuntimeError(f"composite_bwd_info failed: cudaError {err}")
+        raise RuntimeError(f"{name}_info failed: cudaError {err}")
     return dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"),
                     out))
 
@@ -227,20 +252,24 @@ def bwd_kernel_info() -> dict:
 class _CompositeFwd(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, tile_start, tile_count, tiles_x, tiles_y):
+        order = tile_order(tile_count)
         color, t_final = _launch_fwd(rows, tile_start, tile_count, tiles_x,
-                                     tiles_y)
-        ctx.save_for_backward(rows, tile_start, tile_count, color, t_final)
+                                     tiles_y, order)
+        ctx.save_for_backward(rows, tile_start, tile_count, order, color,
+                              t_final)
         ctx.tiles = (tiles_x, tiles_y)
         return color, t_final
 
     @staticmethod
     def backward(ctx, g_color, g_t):
-        rows, tile_start, tile_count, color, t_final = ctx.saved_tensors
+        rows, tile_start, tile_count, order, color, t_final = ctx.saved_tensors
         g_color = (torch.zeros_like(color) if g_color is None
                    else g_color.contiguous())
         g_t = torch.zeros_like(t_final) if g_t is None else g_t.contiguous()
-        d_rows = composite_bwd(rows, tile_start, tile_count, *ctx.tiles,
-                               g_color, g_t, color, t_final)
+        _check_pixels(rows, ctx.tiles[0] * ctx.tiles[1], g_color=g_color,
+                      g_t=g_t)
+        d_rows = _launch_bwd(rows, tile_start, tile_count, *ctx.tiles,
+                             g_color, g_t, color, t_final, order)
         if rows.shape[0] > F_ACTIVE:
             d_rows = torch.cat([d_rows, d_rows.new_zeros(
                 (rows.shape[0] - F_ACTIVE, rows.shape[1]))])

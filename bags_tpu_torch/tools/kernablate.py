@@ -146,16 +146,17 @@ def composite_fwd_fori(rows: torch.Tensor, tile_start: torch.Tensor,
     """The forward compositing with its early exit as a compute skip.
 
     Arguments and outputs as `composite.composite_fwd` (not
-    differentiable). CUDA tensors launch `csrc/composite_ablate.cu`'s
-    `composite_fwd_fori_kernel`, CPU tensors run
-    `tiles.composite_tiles_plain`.
+    differentiable). CUDA tensors launch `csrc/composite_fwd.cu`'s kernel
+    without its block exit (`composite_fwd_fori_launch`), in the forward's
+    launch order; CPU tensors run `tiles.composite_tiles_plain`.
     """
     composite.check_inputs(rows, tile_start, tile_count, tiles_x, tiles_y)
     if rows.device.type == "cpu":
         return composite_tiles_plain(rows, tile_start, tile_count, tiles_x,
                                      tiles_y)
     out = composite.launch_tiles("composite_fwd_fori", rows, tile_start,
-                                 tile_count, tiles_x, tiles_y)
+                                 tile_count, tiles_x, tiles_y,
+                                 order=composite.tile_order(tile_count))
     launches["fori"] += 1
     return out
 

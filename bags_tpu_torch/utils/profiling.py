@@ -49,8 +49,11 @@ OPS_VISITED, OPS_EXP, OPS_ALPHA, OPS_COMPOSITED = 12, 4, 3, 9
 OPS_BWD_INCLUDED = 1 + 36 + 6 + 1 + 1 + 18 + 10
 # delta of the exp skip, p_min = log(ALPHA_MIN / o) - delta, and the
 # footprint's ellipse Q <= FOOTPRINT_K (-p_min), both as
-# csrc/composite_bwd.cu sets them (its head derives them).
+# csrc/composite_common.cuh sets them (its head derives them).
 P_MIN_MARGIN, FOOTPRINT_K = 1e-3, 2.04
+# The forward kernel's warp, columns x rows of pixels (csrc/composite_fwd.cu,
+# WARP_W x WARP_H); its eight warps tile the 16x16 tile in row-major order.
+FWD_WARP = (8, 4)
 # The ablation kernels (csrc/composite_ablate.cu) visit every pair of a
 # tile, with no termination: each exists to time one piece of the loop on
 # every pair, so their bounds charge that piece on every pair. Per mode, operations per (visited pair, pair
@@ -108,9 +111,10 @@ def footprint(f):
     power lies below p_min fails the alpha test for certain, and so does
     every pixel with |px - mx| > ex or |py - my| > ey: the box around the
     ellipse Q <= 2.04 (-p_min) (Q = -2 power), widened by 1e-3 relative and
-    1e-3 pixels, as csrc/composite_bwd.cu computes them in float32. ex = ey
-    = -1 (no pixel) where p_min > 0, and inf (every pixel) where the conic
-    is not clearly positive definite or p_min is NaN."""
+    1e-3 pixels, as csrc/composite_common.cuh computes them in float32.
+    ex = ey = -1 (no pixel) where p_min > 0, and inf (every pixel) where the
+    conic is not clearly positive definite, the power might overflow (a or c
+    >= 1e18, |mx| or |my| >= 1e9) or p_min is NaN."""
     from ..raster import tiles as tl
 
     a, b, c, o = f[tl.R_CA], f[tl.R_CB], f[tl.R_CC], f[tl.R_O]
@@ -119,11 +123,42 @@ def footprint(f):
     k = -FOOTPRINT_K * p_min
     ex = torch.sqrt(k * c / det) * 1.001 + 1e-3
     ey = torch.sqrt(k * a / det) * 1.001 + 1e-3
-    everywhere = ~((a > 0) & (c > 0) & (det > 1e-3 * a * c)) | torch.isnan(p_min)
+    everywhere = ~((a > 0) & (c > 0) & (det > 1e-3 * a * c) & (a < 1e18)
+                   & (c < 1e18) & (f[tl.R_MX].abs() < 1e9)
+                   & (f[tl.R_MY].abs() < 1e9)) | torch.isnan(p_min)
     inf = torch.full_like(ex, float("inf"))
     ex, ey = (torch.where(p_min > 0, -1.0, torch.where(everywhere, inf, e))
               for e in (ex, ey))
     return p_min, ex, ey
+
+
+def pixel_warps():
+    """(256,) the forward kernel's warp of each pixel of a tile (row-major
+    pixel order; `FWD_WARP`)."""
+    from ..raster import tiles as tl
+
+    ww, wh = FWD_WARP
+    off = torch.arange(tl.NPIX)
+    return (off // tl.TILE_W) // wh * (tl.TILE_W // ww) + (off % tl.TILE_W) // ww
+
+
+def footprint_warps(f, x0, y0):
+    """(M, 8) bool: for each instance of rows `f` (F >= 6, M) in the tile at
+    (x0, y0) ((M,) each), the warps (`pixel_warps`) that meet its footprint
+    box (`footprint`), as csrc/composite_common.cuh's footprint_warps sets
+    them; no warp where p_min > 0. A warp whose bit is clear skips the
+    instance in the forward kernel."""
+    from ..raster import tiles as tl
+
+    ww, wh = FWD_WARP
+    p_min, ex, ey = (x[:, None] for x in footprint(f))
+    w = torch.arange(tl.NPIX // 32)
+    wx = x0[:, None] + (w % (tl.TILE_W // ww) * ww)[None, :]
+    wy = y0[:, None] + (w // (tl.TILE_W // ww) * wh)[None, :]
+    mx, my = f[tl.R_MX][:, None], f[tl.R_MY][:, None]
+    outside = ((mx + ex < wx) | (mx - ex > wx + (ww - 1)) | (my + ey < wy)
+               | (my - ey > wy + (wh - 1)))
+    return ~outside & ~(p_min > 0)
 
 
 def pair_counts(rows, tile_start, tile_count, tiles_x, tiles_y, chunk=32,

@@ -6,11 +6,12 @@
 Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
 `bags_tpu`. In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the three kernel sources of `bags_tpu_torch/csrc` (compositing
-     forward, backward, and the profiling tool's ablation and fori
-     kernels; one nvcc per source, in parallel) and prints each build's
-     time and ptxas report, and the backward kernel's resident blocks per
-     SM, registers and shared memory per block;
+  2. builds the three kernel sources of `bags_tpu_torch/csrc` (the
+     compositing forward with its no-exit twin fori, the backward, and the
+     profiling tool's ablation kernels; one nvcc per source, in parallel,
+     each including `composite_common.cuh`) and prints each build's time and
+     ptxas report, and both compositing kernels' resident blocks per SM,
+     registers, shared and local memory;
   3. holds the forward kernel against its plain PyTorch version at test
      sizes (toy scene, unaligned-spill scene, a tile with > 4096 instances):
      max abs difference <= 2e-5; and the backward kernel against
@@ -18,10 +19,12 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      |kernel - plain| <= 1e-5 + 1e-3 |plain| element-wise, and on the dense
      tile, where float32 rounding alone exceeds that, the full-width
      criterion of step 7; two backward launches bit-identical; the
-     backward kernel on each scene's alpha-edge variant (one pair of every
-     instance within 1e-6 relative of 1/255, `alpha_boundary_rows`): the
-     same nonzero entries as the plain version and the element-wise
-     criterion; then the four ablation kernels against
+     forward and backward kernels on each scene's alpha-edge variant (one
+     pair of every instance within 1e-6 relative of 1/255,
+     `alpha_boundary_rows`): the forward within 2e-5 of its plain version
+     and two launches bit-identical, the backward with the same nonzero
+     entries as the plain version and the element-wise criterion; then the
+     four ablation kernels against
      `composite_ablate_plain` (`ablation_agreement` states the tolerances)
      and the fori kernel bit-identical to the forward kernel and within
      2e-5 of `composite_tiles_plain`;
@@ -50,7 +53,8 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      model against `composite_bwd_plain`: relative L2 error of each of the
      10 rows <= 1e-4 and at most 1e-4 of the entries off by more than
      1e-5 + 1e-3 |plain|, two launches bit-identical; its time, the plain
-     version's, the bound and its resources;
+     version's, the bound and its resources; and the forward kernel's time
+     and bound on the same view;
   8. the render CLI restores `chkpnt30.npz` (optimised cameras, no
      `--ply_only`) and renders both splits with `--optim_test_pose_iter 5`;
   9. where a full-width training step's time goes, by stage, the whole
@@ -243,14 +247,17 @@ def test_size_checks(device):
 
 
 def alpha_edge_check(name, args, device):
-    """The backward kernel on `args` with opacities that put one pair of
-    every instance within 1e-6 relative of 1/255 (`alpha_boundary_rows`):
-    its nonzero entries exactly the plain version's, every entry within
-    1e-5 + 1e-3 |plain| (step 3). A pair its exp skip dropped wrongly would
-    leave a zero where the plain version has a value."""
+    """Both kernels on `args` with opacities that put one pair of every
+    instance within 1e-6 relative of 1/255 (`alpha_boundary_rows`; step 3):
+    the forward within 2e-5 of `composite_tiles_plain` (a pair its exp skip
+    or footprint cull dropped wrongly would move the pixel by about 1/255)
+    and two launches bit-identical; the backward's nonzero entries exactly
+    the plain version's (a wrongly dropped pair would leave a zero where the
+    plain version has a value), every entry within 1e-5 + 1e-3 |plain|."""
     import torch
     from bags_tpu_torch.raster import composite
-    from bags_tpu_torch.raster.tiles import ALPHA_MIN, composite_bwd_plain
+    from bags_tpu_torch.raster.tiles import (ALPHA_MIN, composite_bwd_plain,
+                                             composite_tiles_plain)
     from bags_tpu_torch.utils.testing import alpha_boundary_rows
 
     gen = torch.Generator().manual_seed(1)
@@ -259,6 +266,14 @@ def alpha_edge_check(name, args, device):
     below = int(((alpha < ALPHA_MIN) & (alpha >= ALPHA_MIN * (1 - 1e-6))).sum())
     edge = (rows, *args[1:])
     color, t_final = composite.composite_fwd(*edge)
+    fwd_err, _ = compare((color, t_final), composite_tiles_plain(*edge))
+    again = composite.composite_fwd(*edge)
+    fwd_same = torch.equal(color, again[0]) and torch.equal(t_final, again[1])
+    print(f"test size {name} alpha edge forward: max_abs_diff={fwd_err:.3e}, "
+          f"two launches bit-identical: {fwd_same}")
+    check(fwd_err <= TOL_TEST, f"{name} alpha edge: forward vs plain {fwd_err} "
+                               f"> {TOL_TEST}")
+    check(fwd_same, f"{name} alpha edge: two forward launches differ")
     g_color = torch.randn(color.shape, generator=gen).to(device)
     g_t = torch.randn(t_final.shape, generator=gen).to(device)
     kern = composite.composite_bwd(*edge, g_color, g_t, color, t_final)
@@ -620,6 +635,7 @@ def render_path(model, data, scene, device):
         print("render stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     view0 = (rows, bins.tile_start, bins.tile_count, tx, ty)
     return view0, {"name": "composite_fwd", "route": "cuda",
+            "design": "footprint-culled ballot-word walk, 8x4 warps",
             "source": "bags_tpu_torch/csrc/composite_fwd.cu",
             "replaces": "bags_tpu/raster/pallas_raster.py:227",
             "launches": None, "launches_by_path": {"render_cli": cli_launches},
@@ -688,7 +704,7 @@ def ablation_full_width(view0, fwd_entry):
     # fori computes the forward's function bit for bit (checked above), so
     # its bound is the forward's on the same inputs.
     fori_entry = {"name": "composite_fwd_fori", "route": "cuda",
-                  "source": "bags_tpu_torch/csrc/composite_ablate.cu",
+                  "source": "bags_tpu_torch/csrc/composite_fwd.cu",
                   "replaces": "tools/kernablate.py:181", "launches": None,
                   "max_abs_err": fori_err,
                   "identical_to_composite_fwd": same, "ms": fori_ms,
@@ -895,19 +911,21 @@ def restore_path(model, data):
 def backward_full_width(state, scene, device):
     """The backward kernel on a training view of the trained model against
     the plain version, twice bit for bit; its time, the plain version's, the
-    bound and the kernel's resources (step 7). Returns its entry of the
-    kernels line."""
+    bound and the kernel's resources; and the forward kernel's time and
+    bound on the same view (step 7). Returns the backward's entry of the
+    kernels line and the forward's numbers on this view."""
     import torch
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.tiles import composite_bwd_plain
-    from bags_tpu_torch.utils.profiling import bound, bwd_bytes, bwd_ops, pair_counts, timed
+    from bags_tpu_torch.utils.profiling import (bound, bwd_bytes, bwd_ops, fwd_bytes,
+                                                fwd_ops, pair_counts, timed)
 
     with torch.no_grad():
         rows, bins, tx, ty = frame(state.g, state.alive, state.cams[0],
                                    scene.static, 0)
     args = (rows, bins.tile_start, bins.tile_count, tx, ty)
     bwd_args = loss_cotangents(args, scene.static, scene.train_image(0))
-    info = composite.bwd_kernel_info()
+    info = composite.kernel_info("composite_bwd")
     with torch.no_grad():
         err = bwd_full_width_check("full-width backward", bwd_args)
         kernel_ms = timed(lambda: composite.composite_bwd(*bwd_args), device, 20)
@@ -918,7 +936,15 @@ def backward_full_width(state, scene, device):
         print(f"full-width backward bound: {n_bytes} bytes, pairs {counts}, "
               f"{bwd_ops(counts)} FP32 ops -> {bound_ms:.4f} ms ({bound_by}); "
               f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; {info}")
-    return {"name": "composite_bwd", "route": "cuda", "design": "PR 4",
+        fwd_ms = timed(lambda: composite.composite_fwd(*args), device, 20)
+        fwd_bound, fwd_by = bound(fwd_bytes(bins.n_instances, tx * ty),
+                                  fwd_ops(counts))
+        print(f"full-width forward on the same view: kernel {fwd_ms:.4f} ms, "
+              f"bound {fwd_bound:.4f} ms ({fwd_by}; {fwd_ops(counts)} FP32 ops)")
+    fwd_train = {"train_view0_ms": fwd_ms, "train_view0_bound_ms": fwd_bound,
+                 "train_view0_bound_by": fwd_by}
+    return fwd_train, {"name": "composite_bwd", "route": "cuda",
+                       "design": "32-instance flushes, reduce-scatter, footprint cull",
             "source": "bags_tpu_torch/csrc/composite_bwd.cu",
             "replaces": "bags_tpu/raster/pallas_raster.py:334",
             "launches": None, "max_abs_err": err, "max_abs_diff": err,
@@ -959,7 +985,8 @@ def main():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"build wall time {time.perf_counter() - t0:.2f} s")
-    print(f"composite_bwd resources: {composite.bwd_kernel_info()}")
+    for name in ("composite_fwd", "composite_bwd"):
+        print(f"{name} resources: {composite.kernel_info(name)}")
 
     # 3. the kernels against their plain versions at test sizes
     test_size_checks(device)
@@ -986,7 +1013,8 @@ def main():
 
     # 7. the backward kernel at full width on the trained model
     cfg, scene, state, _ = render_cli.restore_trained(train_model, data, -1, device)
-    bwd_entry = backward_full_width(state, scene, device)
+    fwd_train, bwd_entry = backward_full_width(state, scene, device)
+    fwd_entry.update(fwd_train, **composite.kernel_info("composite_fwd"))
     bwd_entry["launches"] = train_bwd
     # 8. restore in the render CLI, test-time pose optimisation
     restore_path(train_model, data)

@@ -155,6 +155,23 @@ def test_backward_kernel_alpha_edge(cuda, name):
     assert not bool(((got - plain).abs() > 1e-5 + 1e-3 * plain.abs()).any())
 
 
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_forward_kernel_alpha_edge(cuda, name):
+    """The same edge opacities (`alpha_boundary_rows`) through the forward
+    kernel: within 2e-5 of `composite_tiles_plain`, where a pair that its
+    exp skip or footprint cull dropped wrongly would move the pixel by about
+    1/255 of its colour and T; and two launches bit-identical."""
+    rows, bins, tx, ty = _rows(_scene(name, cuda))
+    rows, _ = alpha_boundary_rows(rows, bins.tile_start, bins.tile_count, tx, ty)
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    kc, kt = composite.composite_fwd(*args)
+    pc, pt = tiles.composite_tiles_plain(*args)
+    torch.testing.assert_close(kc, pc, atol=2e-5, rtol=0)
+    torch.testing.assert_close(kt, pt, atol=2e-5, rtol=0)
+    kc2, kt2 = composite.composite_fwd(*args)
+    assert torch.equal(kc, kc2) and torch.equal(kt, kt2)
+
+
 def test_render_grads_on_card_match_cpu(cuda):
     """A render's gradients through both kernels against autograd through the
     plain compositor on the CPU: the Gaussians, the camera and the probes."""

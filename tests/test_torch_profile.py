@@ -218,14 +218,11 @@ SKIP_SCENES = {
 }
 
 
-@pytest.mark.parametrize("scene", sorted(SKIP_SCENES))
-def test_exp_skip_and_footprint_change_no_decision(scene):
-    """The backward kernel's exp skip and footprint cull (derived at the
-    head of csrc/composite_bwd.cu, mirrored by `profiling.footprint`), on
-    every pair of every instance with its tile's pixels, power formed in
-    the compositors' operation order in float32: a pair below p_min fails
-    the alpha test, and a pair at or above p_min lies inside the footprint.
-    The skip and the cull both leave out a share of the pairs."""
+def _every_pair(scene):
+    """Every pair of every instance of `scene` with its tile's pixels, power
+    formed in the compositors' operation order in float32: (rows of each
+    instance (F, n), tile of each (n,), dx, dy and power (n, 256), passes
+    the alpha test (n, 256), tiles_x)."""
     rows, start, count, tx, ty = SKIP_SCENES[scene]()
     n = int(count.sum())
     tile_of = torch.repeat_interleave(torch.arange(tx * ty), count.long())
@@ -240,14 +237,41 @@ def test_exp_skip_and_footprint_change_no_decision(scene):
         - f[tiles.R_CB][:, None] * dx * dy
     alpha = torch.clamp(f[tiles.R_O][:, None] * torch.exp(power), max=tiles.ALPHA_MAX)
     passes = (alpha >= tiles.ALPHA_MIN) & (power <= 0)
+    assert int(passes.sum()) > 0
+    return f, tile_of, dx, dy, power, passes, tx
+
+
+@pytest.mark.parametrize("scene", sorted(SKIP_SCENES))
+def test_exp_skip_and_footprint_change_no_decision(scene):
+    """The compositing kernels' exp skip and footprint box (derived at the
+    head of csrc/composite_common.cuh, mirrored by `profiling.footprint`),
+    on every pair of every instance with its tile's pixels: a pair below
+    p_min fails the alpha test, and a pair at or above p_min lies inside
+    the footprint. The skip and the cull both leave out a share of the
+    pairs."""
+    f, _, dx, dy, power, passes, _ = _every_pair(scene)
     p_min, ex, ey = (x[:, None] for x in profiling.footprint(f))
     below = power < p_min
     in_box = (dx.abs() <= ex) & (dy.abs() <= ey)
-    assert int(passes.sum()) > 0
     assert not bool((below & passes).any())
     assert not bool((~below & ~in_box).any())
     assert int(below.sum()) > 0.3 * below.numel()
     assert int((~in_box).sum()) > 0.1 * in_box.numel()
+
+
+@pytest.mark.parametrize("scene", sorted(SKIP_SCENES))
+def test_forward_warp_cull_changes_no_decision(scene):
+    """The forward kernel's per-warp footprint mask at its warp shape
+    (csrc/composite_fwd.cu, mirrored by `profiling.footprint_warps`): no
+    pair that passes the alpha test lies in a culled (instance, warp), and
+    the mask culls a share of the (instance, warp) steps."""
+    f, tile_of, _, _, _, passes, tx = _every_pair(scene)
+    x0 = (tile_of % tx * tiles.TILE_W).float()
+    y0 = (tile_of // tx * tiles.TILE_H).float()
+    keep = profiling.footprint_warps(f, x0, y0)
+    assert keep.shape == (f.shape[1], tiles.NPIX // 32)
+    assert not bool((passes & ~keep[:, profiling.pixel_warps()]).any())
+    assert float((~keep).float().mean()) > 0.0
 
 
 def test_ops_bytes_and_bound_by_hand():
