@@ -26,13 +26,13 @@ import torch
 
 # Switches of paths this slice has not ported -> their ROADMAP.md item.
 UNPORTED = {
-    "outside_rasterizer": "Queue 1 #9, slice 3 (lens calibration)",
-    "opt_distortion": "Queue 1 #9, slice 3 (lens calibration)",
-    "cubemap": "Queue 1 #10, slice 3 (lens calibration)",
-    "mcmc": "Queue 1 #12, slice 4 (MCMC)",
-    "hybrid": "Queue 1 #12, slice 4 (hybrid specular)",
-    "gui": "Queue 1 #13, slice 4 (network viewer)",
-    "vis_pose": "Queue 1 #13, slice 4 (pose plots)",
+    "outside_rasterizer": "Queue 1 #9, slice 4 (lens calibration)",
+    "opt_distortion": "Queue 1 #9, slice 4 (lens calibration)",
+    "cubemap": "Queue 1 #10, slice 4 (lens calibration)",
+    "mcmc": "Queue 1 #12, slice 5 (MCMC)",
+    "hybrid": "Queue 1 #12, slice 5 (hybrid specular)",
+    "gui": "Queue 1 #13, slice 5 (network viewer)",
+    "vis_pose": "Queue 1 #13, slice 5 (pose plots)",
 }
 
 
@@ -203,10 +203,10 @@ def check_ported(cfg) -> None:
             _refuse(name)
     if cfg.mesh > 0:
         raise NotImplementedError("--mesh > 0 is not ported yet: ROADMAP.md "
-                                  "Queue 1 #14, slice 4 (multi-GPU)")
+                                  "Queue 1 #14, slice 5 (multi-GPU)")
     if cfg.opt.batch_cams > 1:
         raise NotImplementedError("--batch_cams > 1 is not ported yet: "
-                                  "ROADMAP.md Queue 1, slice 4")
+                                  "ROADMAP.md Queue 1 #14, slice 5")
 
 
 def build_scene_and_trainer(cfg, device):

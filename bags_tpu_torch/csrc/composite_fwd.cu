@@ -43,6 +43,13 @@
 // - the wrapper launches the tiles with the most instances first
 //   (tile_order), so the last wave of blocks holds short tiles.
 // The loop reads shared memory through 32-bit addresses taken once.
+// The profiling tool prices these pieces with variants of this kernel, each
+// without one piece and with the others as here (DROP:
+// composite_fwd_variant_launch): the exp skip, the footprint cull (every
+// warp's bit set) and the walk over ballot words (a step and a bit test for
+// every batch instance); and the launch order, by launching this kernel
+// with the tiles in index order. Each computes the forward's function bit
+// for bit; the default DROP = KEEP_ALL is the forward.
 // Shared memory per block: 12,288 B of instances and 256 B of masks, so
 // registers decide the blocks per SM: MIN_BLOCKS = 8 (32 registers, a few
 // bytes spilled outside the instance loop) was faster than 6 or 4 on the
@@ -70,8 +77,13 @@ struct FwdShared {
   uint8_t keep[NPIX];  // footprint_warps' mask of each instance
 };
 
+// The pieces of the loop that the profiling tool's variants remove, one
+// each (composite_fwd_variant_launch); KEEP_ALL is the forward.
+enum Drop { KEEP_ALL = 0, NO_EXP_SKIP = 1, NO_CULL = 2, NO_WALK = 3 };
+
 // One pixel's visit of the instance at shared address `in`, in the plain
 // loop's arithmetic; returns true where the instance ends the pixel.
+template <bool EXP_SKIP>
 __device__ __forceinline__ bool visit(unsigned in, float px, float py,
                                       float& T, float (&part)[4]) {
   const float4 geo = lds4(in);  // mx my ca cb
@@ -82,7 +94,7 @@ __device__ __forceinline__ bool visit(unsigned in, float px, float py,
                             __fmul_rn(__fmul_rn(opa.x, dy), dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, q),
                                 __fmul_rn(__fmul_rn(geo.w, dx), dy));
-  if (power > 0.0f || power < opa.y) return false;
+  if (power > 0.0f || (EXP_SKIP && power < opa.y)) return false;
   const float alpha = fminf(ALPHA_MAX, __fmul_rn(opa.z, expf(power)));
   if (alpha < ALPHA_MIN) return false;
   const float test_T = __fmul_rn(T, __fsub_rn(1.0f, alpha));
@@ -97,7 +109,7 @@ __device__ __forceinline__ bool visit(unsigned in, float px, float py,
   return false;
 }
 
-template <bool EXIT>
+template <bool EXIT, int DROP = KEEP_ALL>
 __global__ void __launch_bounds__(NPIX, MIN_BLOCKS)
 composite_fwd_kernel(const float* __restrict__ rows, int64_t row_stride,
                      const int* __restrict__ tile_start,
@@ -142,8 +154,10 @@ composite_fwd_kernel(const float* __restrict__ rows, int64_t row_stride,
 #pragma unroll
       for (int k = 0; k < NFEAT; ++k) f[k] = src[k * row_stride];
       const float p_min = p_min_of(f[5]);
-      keep = footprint_warps<WARP_W, WARP_H>(f[0], f[1], f[2], f[3], f[4],
-                                             p_min, x0, y0);
+      keep = DROP == NO_CULL
+                 ? (1u << NWARP) - 1u
+                 : footprint_warps<WARP_W, WARP_H>(f[0], f[1], f[2], f[3],
+                                                   f[4], p_min, x0, y0);
       Inst& in = sm.inst[tid];
       in.geo = make_float4(f[0], f[1], f[2], f[3]);
       in.opa = make_float4(f[4], p_min, f[5], 0.0f);
@@ -157,13 +171,25 @@ composite_fwd_kernel(const float* __restrict__ rows, int64_t row_stride,
     float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     for (int g = 0; g < n; g += 32) {
       if (__all_sync(ALL_LANES, done)) break;
-      unsigned bits = __ballot_sync(ALL_LANES, sm.keep[g + lane] >> warp & 1u);
-      while (bits) {
-        const int j = g + __ffs(bits) - 1;
-        bits &= bits - 1;
-        if (!done)
-          done = visit(inst_addr + (unsigned)j * (unsigned)sizeof(Inst), px, py,
-                       T, part);
+      if constexpr (DROP == NO_WALK) {
+        // a step for every instance, and the test of its bit in it
+        for (int j = g; j < min(g + 32, n); ++j) {
+          if (!(sm.keep[j] >> warp & 1u)) continue;
+          if (!done)
+            done = visit<true>(inst_addr + (unsigned)j * (unsigned)sizeof(Inst),
+                               px, py, T, part);
+        }
+      } else {
+        unsigned bits =
+            __ballot_sync(ALL_LANES, sm.keep[g + lane] >> warp & 1u);
+        while (bits) {
+          const int j = g + __ffs(bits) - 1;
+          bits &= bits - 1;
+          if (!done)
+            done = visit<DROP != NO_EXP_SKIP>(
+                inst_addr + (unsigned)j * (unsigned)sizeof(Inst), px, py, T,
+                part);
+        }
       }
     }
 #pragma unroll
@@ -177,12 +203,13 @@ composite_fwd_kernel(const float* __restrict__ rows, int64_t row_stride,
   out_t[(int64_t)tile * NPIX + pix] = T;
 }
 
-template <bool EXIT>
+template <bool EXIT, int DROP = KEEP_ALL>
 int launch(const void* rows, int64_t row_stride, const void* tile_start,
            const void* tile_count, const void* tile_order, int tiles_x,
            int num_tiles, void* out_color, void* out_t, void* stream) {
   if (num_tiles > 0) {
-    composite_fwd_kernel<EXIT><<<num_tiles, NPIX, 0, (cudaStream_t)stream>>>(
+    composite_fwd_kernel<EXIT, DROP><<<num_tiles, NPIX, 0,
+                                       (cudaStream_t)stream>>>(
         (const float*)rows, row_stride, (const int*)tile_start,
         (const int*)tile_count, (const int*)tile_order, tiles_x,
         (float*)out_color, (float*)out_t);
@@ -221,4 +248,43 @@ extern "C" int composite_fwd_fori_launch(const void* rows, int64_t row_stride,
 // The forward kernel's resources (kernel_info in composite_common.cuh).
 extern "C" int composite_fwd_info(int* out) {
   return kernel_info(composite_fwd_kernel<true>, out);
+}
+
+// The forward kernel without one piece of its loop, for the profiling
+// tool's timings: variant 1 without the exp skip, 2 without the footprint
+// cull (every warp's bit set), 3 with a step and a bit test for every batch
+// instance in place of the walk over ballot words; each computes the
+// forward's function bit for bit. Other arguments as composite_fwd_launch;
+// cudaErrorInvalidValue for an unknown variant.
+extern "C" int composite_fwd_variant_launch(
+    int variant, const void* rows, int64_t row_stride, const void* tile_start,
+    const void* tile_count, const void* tile_order, int tiles_x,
+    int num_tiles, void* out_color, void* out_t, void* stream) {
+  switch (variant) {
+    case NO_EXP_SKIP:
+      return launch<true, NO_EXP_SKIP>(rows, row_stride, tile_start,
+                                       tile_count, tile_order, tiles_x,
+                                       num_tiles, out_color, out_t, stream);
+    case NO_CULL:
+      return launch<true, NO_CULL>(rows, row_stride, tile_start, tile_count,
+                                   tile_order, tiles_x, num_tiles, out_color,
+                                   out_t, stream);
+    case NO_WALK:
+      return launch<true, NO_WALK>(rows, row_stride, tile_start, tile_count,
+                                   tile_order, tiles_x, num_tiles, out_color,
+                                   out_t, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The resources of variant `variant`'s kernel, as composite_fwd_info.
+extern "C" int composite_fwd_variant_info(int variant, int* out) {
+  switch (variant) {
+    case NO_EXP_SKIP:
+      return kernel_info(composite_fwd_kernel<true, NO_EXP_SKIP>, out);
+    case NO_CULL: return kernel_info(composite_fwd_kernel<true, NO_CULL>, out);
+    case NO_WALK: return kernel_info(composite_fwd_kernel<true, NO_WALK>, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

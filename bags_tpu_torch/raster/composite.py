@@ -8,10 +8,10 @@ launch the hand-written kernels `bags_tpu_torch/csrc/composite_fwd.cu` and
 `csrc/composite_bwd.cu`, or raise; for CPU tensors they run the plain
 PyTorch versions `tiles.composite_tiles_plain` and
 `tiles.composite_bwd_plain`. They never fall back from a kernel to its plain
-version. The profiling tool's kernels (the forward's no-exit twin fori in
-`csrc/composite_fwd.cu`, the ablation modes in `csrc/composite_ablate.cu`,
-wrapped in `bags_tpu_torch/tools/kernablate.py`) are built and launched here
-too.
+version. The profiling tool's kernels (the forward's no-exit twin fori and
+its variants without one piece of the loop each in `csrc/composite_fwd.cu`,
+the ablation modes in `csrc/composite_ablate.cu`, wrapped in
+`bags_tpu_torch/tools/kernablate.py`) are built and launched here too.
 
 The kernels are compiled with nvcc for sm_90a into shared libraries with a
 plain C entry point, at first use, into `build/` at the repository root (one
@@ -59,10 +59,13 @@ _ARGTYPES = {
     "composite_fwd_launch": ("composite_fwd", _ORDERED),
     "composite_fwd_fori_launch": ("composite_fwd", _ORDERED),
     "composite_fwd_info": ("composite_fwd", [_P]),
+    "composite_fwd_variant_launch": ("composite_fwd", [_I] + _ORDERED),
+    "composite_fwd_variant_info": ("composite_fwd", [_I, _P]),
     "composite_bwd_launch": ("composite_bwd",
                              [_P, _I64, _P, _P, _P, _I, _I] + [_P] * 6),
     "composite_bwd_info": ("composite_bwd", [_P]),
     "composite_ablate_launch": ("composite_ablate", [_I] + _TILES),
+    "composite_ablate_info": ("composite_ablate", [_I, _P]),
 }
 
 # Kernel launches made through `composite_fwd` / `composite_bwd` in this
@@ -235,14 +238,15 @@ def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
     return d_rows
 
 
-def kernel_info(name: str) -> dict:
-    """The resources of kernel `name` ("composite_fwd" or "composite_bwd") on
-    the current card: resident blocks per SM
+def kernel_info(name: str, *lead) -> dict:
+    """The resources of kernel `name` ("composite_fwd", "composite_bwd"; with
+    the int `lead`, the mode or variant number of "composite_ablate" or
+    "composite_fwd_variant") on the current card: resident blocks per SM
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` at 256 threads a block),
     registers per thread, static shared memory per block (bytes) and local
     memory per thread (bytes; spills)."""
     out = (ctypes.c_int * 4)()
-    err = _load(f"{name}_info")(out)
+    err = _load(f"{name}_info")(*lead, out)
     if err != 0:
         raise RuntimeError(f"{name}_info failed: cudaError {err}")
     return dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"),

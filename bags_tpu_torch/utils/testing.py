@@ -164,3 +164,44 @@ def alpha_boundary_rows(rows: torch.Tensor, tile_start: torch.Tensor,
     alpha = torch.zeros(rows.shape[1], dtype=torch.float32, device=rows.device)
     alpha[slots] = o * torch.exp(top)
     return out, alpha
+
+
+# Tile ranges of `chunk_crossing_rows`: (start, count) per tile of a 3x1 grid.
+CHUNK_CROSSING_TILES = ((0, 70), (70, 1000), (1070, 130))
+
+
+def chunk_crossing_rows(device=None, seed: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   int, int]:
+    """Compositing inputs whose tile ranges cross the ablation kernels'
+    128-slot chunks and the forward's 256-instance batches mid-chunk.
+
+    A 3x1 grid of 16x16 tiles over 1,200 instance slots
+    (`CHUNK_CROSSING_TILES`): tile 1 starts mid-chunk at slot 70, spans the
+    chunks 0 to 8, and its 256-instance batches end mid-chunk (slots 326,
+    582, 838); tile 2 crosses the chunk boundary at 1152. Each slot is a
+    Gaussian centred in its tile or within 2 pixels of it (numpy `seed`),
+    standard deviations 0.7 to 6 pixels at a random angle (the conic is the
+    inverse covariance), opacity 0.02 to 0.9, colour 0 to 1 and depth 0.5
+    to 1.5.
+    Returns (rows (10, 1200) float32, tile_start, tile_count (3,) int32,
+    tiles_x 3, tiles_y 1) on `device` (default cuda)."""
+    rng = np.random.default_rng(seed)
+    start = np.array([s for s, _ in CHUNK_CROSSING_TILES], np.int32)
+    count = np.array([c for _, c in CHUNK_CROSSING_TILES], np.int32)
+    m = int(start[-1] + count[-1])
+    tile = np.repeat(np.arange(len(start)), count)
+    mx = tile * 16 + rng.uniform(-2.0, 17.0, m)
+    my = rng.uniform(-2.0, 17.0, m)
+    sig = rng.uniform(0.7, 6.0, (m, 2))
+    ang = rng.uniform(0.0, np.pi, m)
+    c, s = np.cos(ang), np.sin(ang)
+    # conic = R diag(1 / sig^2) R^T
+    ia, ib = 1.0 / sig[:, 0] ** 2, 1.0 / sig[:, 1] ** 2
+    ca, cb, cc = c * c * ia + s * s * ib, c * s * (ia - ib), s * s * ia + c * c * ib
+    rows = np.stack([mx, my, ca, cb, cc, rng.uniform(0.02, 0.9, m),
+                     *rng.uniform(0.0, 1.0, (3, m)), rng.uniform(0.5, 1.5, m)])
+    dev = resolve_device(device)
+    return (torch.as_tensor(rows.astype(np.float32), device=dev),
+            torch.as_tensor(start, device=dev), torch.as_tensor(count, device=dev),
+            len(start), 1)

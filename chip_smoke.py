@@ -10,8 +10,9 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      compositing forward with its no-exit twin fori, the backward, and the
      profiling tool's ablation kernels; one nvcc per source, in parallel,
      each including `composite_common.cuh`) and prints each build's time and
-     ptxas report, and both compositing kernels' resident blocks per SM,
-     registers, shared and local memory;
+     ptxas report, and the resident blocks per SM, registers, shared and
+     local memory of both compositing kernels, of each ablation mode and of
+     each variant of the forward;
   3. holds the forward kernel against its plain PyTorch version at test
      sizes (toy scene, unaligned-spill scene, a tile with > 4096 instances):
      max abs difference <= 2e-5; and the backward kernel against
@@ -26,8 +27,11 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      entries as the plain version and the element-wise criterion; then the
      four ablation kernels against
      `composite_ablate_plain` (`ablation_agreement` states the tolerances)
-     and the fori kernel bit-identical to the forward kernel and within
-     2e-5 of `composite_tiles_plain`;
+     on the three scenes and on inputs whose tile ranges cross 128-slot
+     chunks and 256-instance batches mid-chunk (`chunk_crossing_rows`),
+     the fori kernel and every variant of the forward
+     (`kernablate.VARIANTS`) bit-identical to the forward kernel there, and
+     fori within 2e-5 of `composite_tiles_plain`;
   4. camera gradients on the card: dq, dt, fovx, fovy of a toy render with
      both kernels against the same computation on the CPU (plain versions),
      atol 1e-5, rtol 1e-3; then pose recovery on the card (80 Adam steps of
@@ -41,8 +45,9 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      float: max abs difference <= 1e-3 and at most 1e-4 of the pixels off
      by more than 2e-5. Then times each view, the kernel, the plain version
      and the stages of one view; and on view 0 the four ablation kernels
-     against their plain versions, their times and bounds, and the fori
-     kernel bit-identical to the forward kernel and timed beside it;
+     against their plain versions, their times, bounds and resources, the
+     fori kernel and every variant of the forward bit-identical to the
+     forward kernel and timed in turns with it, and `tile_order` alone;
   6. the training path at full width: `bags_tpu_torch.cli.train --preset
      pose_noise --init_type sfm` for 30 iterations on that dataset (1M live
      Gaussians at SH 3), densify grad threshold lowered to 5e-8. Checks: one forward and one backward launch per
@@ -53,8 +58,9 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      model against `composite_bwd_plain`: relative L2 error of each of the
      10 rows <= 1e-4 and at most 1e-4 of the entries off by more than
      1e-5 + 1e-3 |plain|, two launches bit-identical; its time, the plain
-     version's, the bound and its resources; and the forward kernel's time
-     and bound on the same view;
+     version's, the bound and its resources; the forward kernel's time and
+     bound on the same view, and every variant of the forward bit-identical
+     to it and timed in turns with it;
   8. the render CLI restores `chkpnt30.npz` (optimised cameras, no
      `--ply_only`) and renders both splits with `--optim_test_pose_iter 5`;
   9. where a full-width training step's time goes, by stage, the whole
@@ -63,14 +69,17 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      `main(argv)` so that the launch counts are read: the profile CLI with
      `--trace` (the trace must name both compositing kernels and every
      stage), `tools.stagebench`, `tools.kernablate` and `tools.kernablate
-     real` (fori identical to the forward kernel); each tool must launch
-     its kernels. Then, at the tools' workload (100,000 Gaussians, 800x800,
-     about 540k instances), every kernel they launch against its plain
-     version: the forward and fori kernels at step 5's full-width
-     criterion, fori bit-identical to the forward kernel, each ablation
+     real` (fori and every variant identical to the forward kernel); each
+     tool must launch its kernels. Then, at the tools' workload (100,000
+     Gaussians, 800x800, about 540k instances), every kernel they launch
+     against its plain version: the forward and fori kernels at step 5's
+     full-width criterion, fori and every variant bit-identical to the
+     forward kernel (the variants timed in turns with it), each ablation
      mode as on view 0, and the backward kernel at step 7's criterion,
      bit-identical across two launches;
- 11. prints the kernels line (JSON) and, last, the device line (JSON).
+ 11. prints the kernels line (JSON: the forward, the backward, the
+     ablation kernel with every mode's numbers and resources, fori with
+     every variant's under "variants") and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -323,27 +332,87 @@ def ablation_agreement(label, mode, kern, plain, full_width):
     return err
 
 
+def variant_checks(label, args, turns=False):
+    """Each variant of the forward (`kernablate.VARIANTS`) against the
+    forward kernel on `args`: `torch.equal` on colour and t. With `turns`,
+    each variant and the forward timed in turns (variant, forward, forward,
+    variant; 20 reps each) and `tile_order` alone. Returns {variant:
+    {"identical": {label: bool}[, "ms", "composite_fwd_ms",
+    "tile_order_ms"]}}."""
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import kernablate as ka
+    from bags_tpu_torch.utils.profiling import timed
+
+    out = {}
+    with torch.no_grad():
+        want = composite.composite_fwd(*args)
+        for name in ka.VARIANTS:
+            before = ka.launches[name]
+            got = ka.composite_fwd_variant(*args, name)
+            check(ka.launches[name] == before + 1, f"{label} {name}: no launch")
+            same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            print(f"{label} variant {name}: bit-identical to composite_fwd: {same}")
+            check(same, f"{label}: variant {name} differs from the forward kernel")
+            out[name] = {"identical": {label: same}}
+            if not turns:
+                continue
+            times = {name: [], "fwd": []}
+            for which in (name, "fwd", "fwd", name):
+                fn = (composite.composite_fwd if which == "fwd" else
+                      lambda *a: ka.composite_fwd_variant(*a, name))
+                times[which].append(timed(lambda: fn(*args), "cuda", 20))
+            out[name].update(ms=sum(times[name]) / 2,
+                             composite_fwd_ms=sum(times["fwd"]) / 2)
+            print(f"{label} variant {name}: ms {times[name]} vs composite_fwd ms "
+                  f"{times['fwd']} (in turns)")
+        if turns:
+            order_ms = timed(lambda: composite.tile_order(args[2]), "cuda", 20)
+            out["index_order"]["tile_order_ms"] = order_ms
+            print(f"{label} tile_order alone: {order_ms:.4f} ms")
+    return out
+
+
+def merge_variants(into, part, suffix=""):
+    """Merge `variant_checks`' result `part` into `into`, its timings under
+    keys with `suffix`."""
+    for name, res in part.items():
+        entry = into.setdefault(name, {"identical": {}})
+        entry["identical"].update(res["identical"])
+        entry.update({k + suffix: v for k, v in res.items() if k != "identical"})
+
+
 def ablation_test_size(device):
     """The four ablation kernels and fori against their plain versions on
-    the three test scenes, and fori bit-identical to the forward kernel
-    (step 3)."""
+    the three test scenes and the chunk-crossing inputs
+    (`chunk_crossing_rows`), fori and every variant of the forward
+    bit-identical to the forward kernel (step 3). Returns the variants'
+    `variant_checks`."""
     import torch
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.tiles import composite_tiles_plain
     from bags_tpu_torch.tools import kernablate as ka
+    from bags_tpu_torch.utils.testing import chunk_crossing_rows
 
+    inputs = {}
     for name, sc in test_scenes(device).items():
         g, alive = as_gaussians(sc)
         rows, bins, tx, ty = frame(g, alive, sc["cam"], sc["static"],
                                    sc["sh_degree"])
-        args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+        inputs[name] = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    inputs["chunk_crossing"] = chunk_crossing_rows(device)
+    variants = {}
+    for name, args in inputs.items():
         for mode in ka.MODES:
             before = ka.launches[mode]
             kern = ka.composite_ablate(*args, mode)
             check(ka.launches[mode] == before + 1, f"{name} {mode}: no launch")
+            # chunk_crossing: a pixel sums up to nine chunks (the
+            # full-width criterion)
             ablation_agreement(f"test size {name}", mode, kern,
                                ka.composite_ablate_plain(*args, mode),
-                               full_width=False)
+                               full_width=name == "chunk_crossing")
+        merge_variants(variants, variant_checks(f"test size {name}", args))
         fori = ka.composite_fwd_fori(*args)
         fwd = composite.composite_fwd(*args)
         err, _ = compare(fori, composite_tiles_plain(*args))
@@ -352,6 +421,7 @@ def ablation_test_size(device):
               f"bit-identical to composite_fwd: {same}")
         check(same, f"{name}: fori differs from the forward kernel")
         check(err <= TOL_TEST, f"{name}: fori vs plain {err} > {TOL_TEST}")
+    return variants
 
 
 def bwd_agreement(kern, plain):
@@ -646,11 +716,12 @@ def render_path(model, data, scene, device):
 
 def ablation_full_width(view0, fwd_entry):
     """The four ablation kernels and fori on view 0 of the render path:
-    each against its plain version, its time, the plain version's and its
-    bound; fori bit-identical to the forward kernel and timed beside it,
-    in turns (step 5). Returns the kernels line's entries of the ablation
-    kernel (mode "full" in the headline numbers, every mode under "modes")
-    and of fori."""
+    each against its plain version, its time, the plain version's, its
+    bound and its resources; fori and every variant of the forward
+    bit-identical to the forward kernel and timed beside it, in turns, and
+    `tile_order` alone (step 5). Returns the kernels line's entries of the
+    ablation kernel (mode "full" in the headline numbers, every mode under
+    "modes") and of fori (the variants under "variants")."""
     import torch
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.tiles import composite_tiles_plain
@@ -677,10 +748,12 @@ def ablation_full_width(view0, fwd_entry):
             ops = ablate_ops(counts, mode,
                              accepted=0 if mode == "no_transcendental" else None)
             bound_ms, bound_by = bound(n_bytes, ops)
+            info = ka.kernel_info(mode)
             modes[mode] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by}
+                           "bound_ms": bound_ms, "bound_by": bound_by, **info}
             print(f"view 0 {mode}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} bytes, {ops} ops)")
+                  f"bound {bound_ms:.4f} ms ({bound_by}; {n_bytes} bytes, {ops} "
+                  f"ops); {info}")
         fori = ka.composite_fwd_fori(*view0)
         fwd = composite.composite_fwd(*view0)
         same = torch.equal(fori[0], fwd[0]) and torch.equal(fori[1], fwd[1])
@@ -692,6 +765,11 @@ def ablation_full_width(view0, fwd_entry):
         for which in ("fwd", "fori", "fori", "fwd"):
             fn = composite.composite_fwd if which == "fwd" else ka.composite_fwd_fori
             times[which].append(timed(lambda: fn(*view0), "cuda", 20))
+    variants = {}
+    merge_variants(variants, variant_checks("view 0", view0, turns=True))
+    for name, res in variants.items():
+        res.update(bound_ms=fwd_entry["bound_ms"], bound_by=fwd_entry["bound_by"],
+                   **ka.kernel_info(name))
     fori_ms = sum(times["fori"]) / 2
     print(f"view 0 fori: bit-identical to composite_fwd: {same}; fori ms "
           f"{times['fori']} vs composite_fwd ms {times['fwd']} (in turns); "
@@ -712,7 +790,7 @@ def ablation_full_width(view0, fwd_entry):
                   "plain_ms": plain_ms, "bound_ms": fwd_entry["bound_ms"],
                   "bound_by": fwd_entry["bound_by"],
                   "bound_from": "composite_fwd (the same function and inputs)",
-                  "library_ms": None}
+                  "library_ms": None, "variants": variants}
     return ablate, fori_entry
 
 
@@ -721,10 +799,13 @@ def tools_workload_checks(device):
     tools' own workload (their default flags; step 10): the forward and
     fori kernels against `composite_tiles_plain` and the backward kernel
     against `composite_bwd_plain` (with the cotangents of the profiled
-    step's loss against its zero GT) at the full-width criteria, fori bit
-    for bit against the forward kernel, and each ablation mode against
-    `composite_ablate_plain` as at full width. Returns {kernel entry name:
-    max abs difference}, the ablation modes under "composite_ablate:<mode>"."""
+    step's loss against its zero GT) at the full-width criteria, fori and
+    every variant of the forward bit for bit against the forward kernel
+    (the variants also timed in turns with it), and each ablation mode
+    against `composite_ablate_plain` as at full width. Returns {kernel entry
+    name: max abs difference}, the ablation modes under
+    "composite_ablate:<mode>", and the variants' `variant_checks` under
+    "variants"."""
     import torch
     from bags_tpu_torch.cli import profile as profile_cli
     from bags_tpu_torch.raster import composite
@@ -747,6 +828,7 @@ def tools_workload_checks(device):
         check(torch.equal(fori[0], fwd[0]) and torch.equal(fori[1], fwd[1]),
               f"{label}: fori differs from the forward kernel")
         del plain, fwd, fori
+        errs["variants"] = variant_checks("tools' workload", args, turns=True)
         for mode in ka.MODES:
             errs[f"composite_ablate:{mode}"] = ablation_agreement(
                 label, mode, ka.composite_ablate(*args, mode),
@@ -788,7 +870,8 @@ def tools_path(device):
         launches[tool] = {"composite_fwd": composite.fwd_launches,
                           "composite_bwd": composite.bwd_launches,
                           **{("composite_fwd_fori" if k == "fori" else
-                              f"composite_ablate:{k}"): v
+                              f"composite_fwd_variant:{k}" if k in ka.VARIANTS
+                              else f"composite_ablate:{k}"): v
                              for k, v in ka.launches.items()}}
         print(f"{tool}: {time.perf_counter() - t0:.1f} s, launches {launches[tool]}")
     for tool in ("profile", "stagebench"):
@@ -797,12 +880,13 @@ def tools_path(device):
     for mode in ka.MODES:
         check(launches["kernablate"][f"composite_ablate:{mode}"] > 0,
               f"kernablate: {mode} not launched")
-    check(launches["kernablate_real"]["composite_fwd_fori"] > 0
-          and launches["kernablate_real"]["composite_fwd"] > 0,
-          f"kernablate real: launches {launches['kernablate_real']}")
+    real_launches = launches["kernablate_real"]
+    check(real_launches["composite_fwd_fori"] > 0 and real_launches["composite_fwd"] > 0
+          and all(real_launches[f"composite_fwd_variant:{v}"] > 0 for v in ka.VARIANTS),
+          f"kernablate real: launches {real_launches}")
     real = results["kernablate_real"]
     check(real["dcolor"] == 0.0 and real["dt"] == 0.0,
-          f"kernablate real: fori differs from the forward kernel: {real}")
+          f"kernablate real: fori or a variant differs from the forward kernel: {real}")
     prof = results["profile"]
     check(math.isfinite(float(prof["loss"]))
           and all(bool(torch.isfinite(g).all()) for g in prof["grads"]),
@@ -952,6 +1036,26 @@ def backward_full_width(state, scene, device):
             "bound_by": bound_by, "library_ms": None, **info}
 
 
+def train_view_variants(state, scene):
+    """Every variant of the forward against the forward kernel on train
+    view 0 of the trained model, bit for bit and timed in turns, with the
+    forward's bound there (step 7). Returns `variant_checks`' result with
+    the bound."""
+    import torch
+    from bags_tpu_torch.utils.profiling import bound, fwd_bytes, fwd_ops, pair_counts
+
+    with torch.no_grad():
+        rows, bins, tx, ty = frame(state.g, state.alive, state.cams[0],
+                                   scene.static, 0)
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    out = variant_checks("train view 0", args, turns=True)
+    bound_ms, bound_by = bound(fwd_bytes(bins.n_instances, tx * ty),
+                               fwd_ops(pair_counts(*args)))
+    for res in out.values():
+        res.update(bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
 def main():
     import torch
 
@@ -987,10 +1091,12 @@ def main():
     print(f"build wall time {time.perf_counter() - t0:.2f} s")
     for name in ("composite_fwd", "composite_bwd"):
         print(f"{name} resources: {composite.kernel_info(name)}")
+    for name in ka.MODES + ka.VARIANTS:
+        print(f"kernablate {name} resources: {ka.kernel_info(name)}")
 
     # 3. the kernels against their plain versions at test sizes
     test_size_checks(device)
-    ablation_test_size(device)
+    variants_test = ablation_test_size(device)
     # 4. camera gradients on the card, pose recovery
     camera_grad_check(device)
     pose_recovery(device)
@@ -1016,6 +1122,9 @@ def main():
     fwd_train, bwd_entry = backward_full_width(state, scene, device)
     fwd_entry.update(fwd_train, **composite.kernel_info("composite_fwd"))
     bwd_entry["launches"] = train_bwd
+    variants = fori_entry["variants"]
+    merge_variants(variants, variants_test)
+    merge_variants(variants, train_view_variants(state, scene), "_train_view0")
     # 8. restore in the render CLI, test-time pose optimisation
     restore_path(train_model, data)
     # 9. where a training step's time goes
@@ -1028,6 +1137,10 @@ def main():
         entry["max_abs_err_tools_workload"] = errs[entry["name"]]
     ablate_entry["max_abs_err_tools_workload"] = {
         m: errs[f"composite_ablate:{m}"] for m in ka.MODES}
+    merge_variants(variants, errs["variants"], "_tools_workload")
+    for name, res in variants.items():
+        res["launches"] = launches["kernablate_real"][f"composite_fwd_variant:{name}"]
+        check(all(res["identical"].values()), f"variant {name}: {res['identical']}")
     for entry in (fwd_entry, bwd_entry):
         entry.setdefault("launches_by_path", {"train_cli": entry["launches"]})
         for tool in ("profile", "stagebench", "kernablate_real"):

@@ -15,7 +15,8 @@ from bags_tpu_torch.core.projection import project_gaussians
 from bags_tpu_torch.raster import binning, composite, tiles
 from bags_tpu_torch.raster.render import RenderConfig, build_packet_table, render
 from bags_tpu_torch.tools import kernablate
-from bags_tpu_torch.utils.testing import alpha_boundary_rows, make_toy_scene
+from bags_tpu_torch.utils.testing import (alpha_boundary_rows, chunk_crossing_rows,
+                                          make_toy_scene)
 
 pytestmark = pytest.mark.gpu
 ARGS = ("xyz", "scales", "quats", "opacity", "sh_coeffs")
@@ -242,3 +243,48 @@ def test_fori_kernel_is_the_forward(cuda, name):
     pc, pt = tiles.composite_tiles_plain(*args)
     torch.testing.assert_close(fc, pc, atol=2e-5, rtol=0)
     torch.testing.assert_close(ft, pt, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode", kernablate.MODES)
+def test_ablation_kernel_across_chunks(cuda, mode):
+    """Each ablation mode's kernel against `composite_ablate_plain` where a
+    tile starts mid-chunk, spans nine chunks and its 256-instance batches
+    end mid-chunk (`chunk_crossing_rows`): the running sums must reset at
+    each 128-slot boundary. t exactly 1, no_transcendental's colour exactly
+    0, dma_only within 1e-6 of max |plain|; no_scan and full element-wise
+    within 2e-5 + 1e-5 |plain| (chip_smoke.py's full-width criterion: a
+    pixel sums up to nine chunks, past the values 2e-5 was set for)."""
+    args = chunk_crossing_rows(cuda)
+    kc, kt = kernablate.composite_ablate(*args, mode)
+    pc, pt = kernablate.composite_ablate_plain(*args, mode)
+    assert bool((kt == 1).all()) and bool((pt == 1).all())
+    if mode == "no_transcendental":
+        assert float(kc.abs().max()) == 0.0 and float(pc.abs().max()) == 0.0
+    elif mode == "dma_only":
+        assert float((kc - pc).abs().max()) <= 1e-6 * float(pc.abs().max())
+    else:
+        assert float(pc.abs().max()) > 1.0
+        assert not bool(((kc - pc).abs() > 2e-5 + 1e-5 * pc.abs()).any())
+
+
+@pytest.mark.parametrize("edge", [False, True], ids=["plain", "alpha_edge"])
+@pytest.mark.parametrize("name", sorted(SCENES) + ["chunk_crossing"])
+@pytest.mark.parametrize("variant", kernablate.VARIANTS)
+def test_fwd_variant_is_the_forward(cuda, variant, name, edge):
+    """Each variant of the forward (`kernablate.composite_fwd_variant`) is
+    bit-identical to `composite_fwd`, also where every instance has a pair
+    on the alpha test's edge (`alpha_boundary_rows`), where a wrong skip
+    would change a pixel."""
+    if name == "chunk_crossing":
+        rows, start, count, tx, ty = chunk_crossing_rows(cuda)
+    else:
+        rows, bins, tx, ty = _rows(_scene(name, cuda))
+        start, count = bins.tile_start, bins.tile_count
+    if edge:
+        rows, _ = alpha_boundary_rows(rows, start, count, tx, ty)
+    args = (rows, start, count, tx, ty)
+    before = kernablate.launches[variant]
+    vc, vt = kernablate.composite_fwd_variant(*args, variant)
+    assert kernablate.launches[variant] == before + 1
+    kc, kt = composite.composite_fwd(*args)
+    assert torch.equal(vc, kc) and torch.equal(vt, kt)

@@ -5,7 +5,9 @@ with every `pallas_call` recorded, on a 3,000-Gaussian scene at its own
 port's plain versions of the four ablation modes, of `fori` and of the real
 forward then take the recorded inputs and are held to the recorded outputs.
 The CUDA kernels are held against these plain versions on the card
-(`tests/test_torch_gpu.py`, `chip_smoke.py`)."""
+(`tests/test_torch_gpu.py`, `chip_smoke.py`). The forward's variants, which
+the JAX tool does not have, are held here to `composite_tiles_plain` on the
+CPU, and `real` on a tiny CPU workload."""
 
 import contextlib
 import io
@@ -154,3 +156,59 @@ def test_kernablate_cli_on_cpu(capsys):
     for label in ka.MODES + ("real fori+when", "real while_loop", "max |dcolor|"):
         assert label in out
     assert real["dcolor"] == 0.0 and real["dt"] == 0.0
+
+
+def test_fwd_variant_rejects_unknown_name(recorded):
+    rows, start, count, tiles_x, _ = _port_inputs(
+        _calls(recorded, "kern")[0][1], recorded[1])
+    with pytest.raises(ValueError, match="variant"):
+        ka.composite_fwd_variant(rows, start, count, tiles_x, TILES[1], "fast")
+
+
+@pytest.mark.parametrize("name", ka.VARIANTS)
+def test_fwd_variant_on_cpu_is_plain(recorded, name):
+    """On CPU tensors each variant of the forward returns
+    `composite_tiles_plain`'s output and launches nothing. The first two
+    tile rows of the JAX tool's workload."""
+    rows, start, count, tiles_x, _ = _port_inputs(
+        _calls(recorded, "kern")[0][1], recorded[1])
+    inputs = (rows, start[:2 * tiles_x].contiguous(),
+              count[:2 * tiles_x].contiguous(), tiles_x, 2)
+    before = dict(ka.launches)
+    got = ka.composite_fwd_variant(*inputs, name)
+    assert all(torch.equal(a, b) for a, b in zip(got, composite_tiles_plain(*inputs)))
+    assert ka.launches == before
+
+
+def test_real_variants_on_cpu():
+    """`real` on a tiny CPU workload returns fori and every variant, each
+    with its time, the forward's in the same turns and a difference of 0."""
+    out = ka.real_variants(ka.parse_args(["real", "--device", "cpu", "--n", "300",
+                                          "--size", "64"]))
+    assert sorted(out["variants"]) == sorted(("fori",) + ka.VARIANTS)
+    for res in out["variants"].values():
+        assert res["dcolor"] == 0.0 and res["dt"] == 0.0
+        assert res["ms"] > 0.0 and res["fwd_ms"] > 0.0
+    assert out["tile_order"] > 0.0 and out["dcolor"] == 0.0 and out["dt"] == 0.0
+
+
+def test_chunk_crossing_rows_cross_chunks_and_batches():
+    """The inputs of the ablation kernels' chunk test: a tile that starts
+    mid-chunk, spans at least three chunks and whose 256-instance batches
+    end mid-chunk; every mode's plain version gives finite colour there and
+    t exactly 1."""
+    from bags_tpu_torch.utils.testing import chunk_crossing_rows
+
+    args = chunk_crossing_rows("cpu")
+    start, count = args[1].long(), args[2].long()
+    end = start + count
+    spans = (end - 1) // ka.CHUNK - start // ka.CHUNK + 1
+    mid_start = (start % ka.CHUNK != 0) & (spans >= 3)
+    batch_ends = [s + b for s, c in zip(start.tolist(), count.tolist())
+                  for b in range(256, c, 256)]
+    assert bool(mid_start.any())
+    assert batch_ends and all(b % ka.CHUNK != 0 for b in batch_ends)
+    for mode in ka.MODES:
+        color, t = ka.composite_ablate_plain(*args, mode)
+        assert bool(torch.isfinite(color).all()) and bool((t == 1).all())
+        assert (float(color.abs().max()) > 0) == (mode != "no_transcendental")

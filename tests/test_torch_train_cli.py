@@ -239,9 +239,9 @@ def test_render_cli_optimises_test_poses(trained, dataset, capsys):
 
 
 @pytest.mark.parametrize("flag, slice_", [
-    (["--cubemap"], "slice 3"), (["--outside_rasterizer"], "slice 3"),
-    (["--mcmc"], "slice 4"), (["--batch_cams", "2"], "slice 4"),
-    (["--gui"], "slice 4")])
+    (["--cubemap"], "slice 4"), (["--outside_rasterizer"], "slice 4"),
+    (["--mcmc"], "slice 5"), (["--batch_cams", "2"], "slice 5"),
+    (["--gui"], "slice 5")])
 def test_train_cli_refuses_unported_paths(tmp_path, dataset, flag, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         train_cli.main(["-s", dataset, "-m", str(tmp_path / "m"), "--device", "cpu"]
