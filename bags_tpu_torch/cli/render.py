@@ -9,8 +9,11 @@ Loads the trained state: the full `chkpnt{it}.npz` checkpoint with its
 alignment), else, or with `--ply_only`, the saved PLY with the dataset's
 cameras. `--optim_test_pose_iter N` first optimizes each test camera's pose
 (photometric, pose-only Adam) and saves / resumes `opt_test_cams.npz`. Runs
-on `--device cuda` (the default) or `--device cpu`. The fisheye and hybrid
-models of later slices raise `NotImplementedError`.
+on `--device cuda` (the default) or `--device cpu`. A fisheye model
+(`--outside_rasterizer`) is restored with its lens net, vignetting and
+shift, and each view is rendered at the extended FoV and warped through
+the lens against the fisheye GT (`fish/images`), as training evaluates.
+The cubemap and hybrid models of later slices raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -59,11 +62,12 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def restore_trained(model_path: str, source_path: str, iteration: int,
+def restore_trainer(model_path: str, source_path: str, iteration: int,
                     device):
-    """Rebuild the training-time Scene and state template from `cfg.json`
-    and restore `chkpnt{iteration}.npz` (the latest for -1) into it.
-    Returns (cfg, scene, state, it), or None without a checkpoint."""
+    """Rebuild the training-time Scene and trainer from `cfg.json` and
+    restore `chkpnt{iteration}.npz` (the latest for -1) into its state (a
+    fisheye model's lens is not pre-fitted first: the checkpoint holds it).
+    Returns (cfg, scene, trainer, it), or None without a checkpoint."""
     from ..train.checkpoint import find_max_iteration, load_checkpoint
     from ..train.config import TrainConfig
     from .train import build_scene_and_trainer
@@ -79,11 +83,13 @@ def restore_trained(model_path: str, source_path: str, iteration: int,
         cfg = TrainConfig.from_json(f.read())
     cfg.model.source_path = source_path  # the data may have moved
     cfg.mesh = 0                         # a mesh checkpoint renders on one card
+    cfg.calib.no_init_iresnet = True     # the checkpoint holds the lens
     scene, trainer = build_scene_and_trainer(cfg, device)
     trainer.close()
     load_checkpoint(ck, trainer.state, with_optimizer=False)
+    trainer.active_sh_degree = trainer.max_sh_degree
     print(f"restored the training state from {ck}")
-    return cfg, scene, trainer.state, it
+    return cfg, scene, trainer, it
 
 
 def optimize_test_poses(render_cam, cams, scene, iters: int):
@@ -124,11 +130,17 @@ def main(argv=None) -> dict:
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
-    trained = None if args.ply_only else restore_trained(
+    trained = None if args.ply_only else restore_trainer(
         args.model_path, args.source_path, args.iteration, device)
+    fisheye_eval = None
     if trained is not None:
-        cfg_t, scene, state, it = trained
+        cfg_t, scene, trainer, it = trained
+        state = trainer.base
         g, alive, align = state.g, state.alive, state.align
+        if cfg_t.calib.outside_rasterizer:
+            from ..train.calibrated import (fisheye_eval_view,
+                                            make_fisheye_eval_fn)
+            fisheye_eval = make_fisheye_eval_fn(trainer)
         train_cams = state.cams                 # the OPTIMIZED train cameras
         cfg = RenderConfig(sh_degree=cfg_t.model.sh_degree,
                            max_instances=args.max_instances)
@@ -188,12 +200,16 @@ def main(argv=None) -> dict:
             os.makedirs(os.path.join(out_dir, "gt"), exist_ok=True)
             vals = []
             for i in range(n):
-                out = render_cam(cams[i])
-                if out.n_dropped:
-                    print(f"{split} view {i}: dropped {out.n_dropped} "
-                          f"instances past --max_instances")
-                img = torch.clamp(out.render, 0.0, 1.0)
-                gt_img = gt_fn(i)
+                if fisheye_eval is not None:
+                    img, gt_img = fisheye_eval_view(trainer, fisheye_eval,
+                                                    scene, split, cams, i)
+                else:
+                    out = render_cam(cams[i])
+                    if out.n_dropped:
+                        print(f"{split} view {i}: dropped {out.n_dropped} "
+                              f"instances past --max_instances")
+                    img = torch.clamp(out.render, 0.0, 1.0)
+                    gt_img = gt_fn(i)
                 vals.append(float(psnr(img, gt_img)))
                 save_png(os.path.join(out_dir, "renders", f"{i:05d}.png"), img)
                 save_png(os.path.join(out_dir, "gt", f"{i:05d}.png"), gt_img)

@@ -8,9 +8,16 @@ Writes `cfg.json`, `point_cloud/iteration_{it}/point_cloud.ply` at
 `metrics.jsonl` every 10 iterations and `evaluation_results.txt` at
 `--test_iterations` (the test split and the first 5 train views: L1, PSNR,
 SSIM, LPIPS n/a, and with `--opt_cam` the pose error). `--start_checkpoint`
-resumes. Runs on `--device cuda` (the default) or `--device cpu`. The lens
-calibration, MCMC, hybrid, multi-GPU and batched-camera paths are later
-slices of the port and raise `NotImplementedError`.
+resumes. Runs on `--device cuda` (the default) or `--device cpu`.
+
+`--outside_rasterizer` (`--preset fisheye`) trains the fisheye mode
+(`train/calibrated.py::CalibTrainer`): the render at the extended FoV
+warped through the iResNet lens net against the `fish/images` GT, the lens
+pre-fitted to the COLMAP coefficients of `fish/sparse/0` first
+(`--lens_prefit_iters`, 5,000 Adam steps as in the JAX package; its time
+is printed), and its evaluation warps through the lens. The cubemap, MCMC,
+hybrid, multi-GPU and batched-camera paths are later slices of the port
+and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,8 +33,6 @@ import torch
 
 # Switches of paths this slice has not ported -> their ROADMAP.md item.
 UNPORTED = {
-    "outside_rasterizer": "Queue 1 #9, slice 4 (lens calibration)",
-    "opt_distortion": "Queue 1 #9, slice 4 (lens calibration)",
     "cubemap": "Queue 1 #10, slice 4 (lens calibration)",
     "mcmc": "Queue 1 #12, slice 5 (MCMC)",
     "hybrid": "Queue 1 #12, slice 5 (hybrid specular)",
@@ -128,6 +133,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wandb_mode", default="online")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--lens_prefit_iters", type=int, default=5000,
+                   help="Adam steps of the fisheye lens pre-fit to the COLMAP "
+                        "coefficients (the JAX package's 5000); fewer only "
+                        "to try the path quickly")
     return p
 
 
@@ -194,9 +203,7 @@ def _refuse(name: str):
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a configuration that takes a path this
     slice of the port does not have, naming its ROADMAP.md item."""
-    flags = {"outside_rasterizer": cfg.calib.outside_rasterizer,
-             "opt_distortion": cfg.calib.opt_distortion,
-             "cubemap": cfg.calib.cubemap, "mcmc": cfg.mcmc,
+    flags = {"cubemap": cfg.calib.cubemap, "mcmc": cfg.mcmc,
              "hybrid": cfg.calib.hybrid}
     for name, value in flags.items():
         if value:
@@ -209,12 +216,15 @@ def check_ported(cfg) -> None:
                                   "ROADMAP.md Queue 1 #14, slice 5")
 
 
-def build_scene_and_trainer(cfg, device):
+def build_scene_and_trainer(cfg, device, lens_prefit_iters: int = 5000):
     """The Scene and Trainer exactly as training builds them from a
     (possibly cfg.json-restored) TrainConfig; the render CLI rebuilds its
-    checkpoint template with it."""
+    checkpoint template with it. `--outside_rasterizer` gives a
+    CalibTrainer, its fisheye size read from the first training view's
+    `fish/images` pair."""
     from ..data.scene import Scene
     from ..raster.render import RenderConfig
+    from ..train.calibrated import CalibTrainer
     from ..train.loop import Trainer
 
     check_ported(cfg)
@@ -227,12 +237,26 @@ def build_scene_and_trainer(cfg, device):
                   init_type=("random" if cfg.random_init_pc
                              else cfg.model.init_type),
                   num_pts=cfg.model.num_init_points, device=device)
-    trainer = Trainer(scene.gaussians, scene.alive, scene.train_cams,
-                      scene.static, cfg, scene_extent=scene.cameras_extent,
-                      gt_images=scene.train_image,
-                      rcfg=RenderConfig(sh_degree=cfg.model.sh_degree),
-                      seed=cfg.seed)
-    return scene, trainer
+    rcfg = RenderConfig(sh_degree=cfg.model.sh_degree)
+    if not cfg.calib.outside_rasterizer:
+        return scene, Trainer(
+            scene.gaussians, scene.alive, scene.train_cams, scene.static, cfg,
+            scene_extent=scene.cameras_extent, gt_images=scene.train_image,
+            rcfg=rcfg, seed=cfg.seed)
+    info0 = scene.train_infos[0]
+    fish_wh = (scene.static.width, scene.static.height)
+    if info0.fish_image_path:
+        from PIL import Image
+        with Image.open(info0.fish_image_path) as im:
+            fish_wh = im.size
+    return scene, CalibTrainer(
+        scene.gaussians, scene.alive, scene.train_cams, scene.static, cfg,
+        scene_extent=scene.cameras_extent, gt_images=scene.train_image,
+        focal_x=info0.focal_x, focal_y=info0.focal_y,
+        persp_wh=(scene.static.width, scene.static.height), fish_wh=fish_wh,
+        source_path=cfg.model.source_path, rcfg=rcfg, seed=cfg.seed,
+        fish_images=scene.fish_image if info0.fish_image_path else None,
+        prefit_iters=lens_prefit_iters)
 
 
 def main(argv=None) -> dict:
@@ -240,7 +264,8 @@ def main(argv=None) -> dict:
     seconds of the iteration, its evaluation and saving left out) per
     iteration, "densify": [(it, cloned, split, pruned, alive_before,
     alive_after)], "eval": the evaluation lines, "eval_renders": the views
-    evaluation rendered, "model_path": ...}."""
+    evaluation rendered, "model_path": ..., "lens_prefit_s": the fisheye
+    lens pre-fit's seconds or None}."""
     from ..train.presets import apply_preset
 
     argv = apply_preset(list(argv if argv is not None else sys.argv[1:]))
@@ -268,38 +293,56 @@ def main(argv=None) -> dict:
     with open(os.path.join(args.model_path, "cfg.json"), "w") as f:
         f.write(cfg.to_json())
 
-    scene, trainer = build_scene_and_trainer(cfg, device)
+    scene, trainer = build_scene_and_trainer(cfg, device,
+                                             args.lens_prefit_iters)
     print(f"scene: {scene.n_train} train / {scene.n_test} test cameras, "
           f"extent {scene.cameras_extent:.3f}, capacity "
-          f"{trainer.state.capacity}, alive {int(trainer.state.alive.sum())}, "
+          f"{trainer.base.capacity}, alive {int(trainer.base.alive.sum())}, "
           f"size {scene.static.width}x{scene.static.height}, device {device}")
+    fisheye_eval = None
+    if cfg.calib.outside_rasterizer:
+        from ..train.calibrated import fisheye_eval_view, make_fisheye_eval_fn
+        fisheye_eval = make_fisheye_eval_fn(trainer)
+        st = trainer.setup
+        print(f"fisheye: render {st.render_static.width}x"
+              f"{st.render_static.height} at FoV {st.fovx:.4f} x "
+              f"{st.fovy:.4f}, control grid {st.grid_hw}, flow {st.flow_hw}, "
+              f"fisheye GT {st.fish_hw}")
     if args.start_checkpoint:
         load_checkpoint(args.start_checkpoint, trainer.state)
         print(f"resumed from {args.start_checkpoint} at step "
-              f"{trainer.state.step}")
+              f"{trainer.base.step}")
 
     logger = MetricsLogger(args.model_path)
     eval_file = os.path.join(args.model_path, "evaluation_results.txt")
     summary = {"losses": [], "step_s": [], "densify": trainer.densify_log,
-               "eval": [], "eval_renders": 0, "model_path": args.model_path}
+               "eval": [], "eval_renders": 0, "model_path": args.model_path,
+               "lens_prefit_s": getattr(trainer, "prefit_s", None)}
+
+    def eval_view(split, cams, i):
+        """(image, gt) of view i of a split, clipped / masked for metrics."""
+        if fisheye_eval is not None:
+            return fisheye_eval_view(trainer, fisheye_eval, scene, split,
+                                     cams, i)
+        st = trainer.base
+        g = st.g
+        out = render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
+                     g.sh_coeffs(), cams[i], scene.static,
+                     RenderConfig(sh_degree=trainer.active_sh_degree),
+                     bg=trainer.bg, align=st.align)
+        gt_fn = scene.test_image if split == "test" else scene.train_image
+        return torch.clamp(out.render, 0.0, 1.0), gt_fn(i)
 
     @torch.no_grad()
     def evaluate(it):
-        st = trainer.state
-        ecfg = RenderConfig(sh_degree=trainer.active_sh_degree)
-        g = st.g
+        st = trainer.base
         lines, img = [], None
-        for split, cams, gt_fn, n in (
-                ("test", scene.test_cams, scene.test_image, scene.n_test),
-                ("train", st.cams, scene.train_image, min(5, scene.n_train))):
+        for split, cams, n in (("test", scene.test_cams, scene.n_test),
+                               ("train", st.cams, min(5, scene.n_train))):
             l1s, psnrs, ssims = [], [], []
             for i in range(n):
-                out = render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
-                             g.sh_coeffs(), cams[i], scene.static, ecfg,
-                             bg=trainer.bg, align=st.align)
+                img, gt_img = eval_view(split, cams, i)
                 summary["eval_renders"] += 1
-                img = torch.clamp(out.render, 0.0, 1.0)
-                gt_img = gt_fn(i)
                 l1s.append(float(torch.mean(torch.abs(img - gt_img))))
                 psnrs.append(float(psnr(img, gt_img)))
                 ssims.append(float(ssim(img, gt_img)))
@@ -338,8 +381,8 @@ def main(argv=None) -> dict:
             ply_dir = os.path.join(args.model_path, "point_cloud",
                                    f"iteration_{it}")
             os.makedirs(ply_dir, exist_ok=True)
-            save_ply(os.path.join(ply_dir, "point_cloud.ply"), state.g,
-                     state.alive)
+            save_ply(os.path.join(ply_dir, "point_cloud.ply"), trainer.base.g,
+                     trainer.base.alive)
         if it in cfg.checkpoint_iterations:
             save_checkpoint(os.path.join(args.model_path, f"chkpnt{it}.npz"),
                             state)

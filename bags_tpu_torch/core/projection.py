@@ -100,8 +100,14 @@ def project_gaussians(
     sh_degree: int,
     align: Optional[GlobalAlignment] = None,
     extra_color: Optional[torch.Tensor] = None,    # (N, 3)
+    shift_factors: Optional[torch.Tensor] = None,  # (3,)
 ) -> Projected:
     """Differentiable EWA projection of all Gaussians for one camera.
+
+    shift_factors: the entrance-pupil shift; the view-space point moves by
+    shift_factors / clamp(z, 1e-6) before the pixel projection and the
+    Jacobian, while `depth` (the cull and the sort key) keeps the unshifted
+    z, as in the JAX package.
 
     The few 3x3 camera products run in full float32: the package switches
     TF32 off (`bags_tpu_torch/__init__.py`); the rest is elementwise.
@@ -115,12 +121,18 @@ def project_gaussians(
     ty = r[1][0] * wx + r[1][1] * wy + r[1][2] * wz + t_w2c[1]
     depth = r[2][0] * wx + r[2][1] * wy + r[2][2] * wz + t_w2c[2]
     in_front = depth > FRUSTUM_NEAR
+    tz = depth
+    if shift_factors is not None:
+        inv_d = 1.0 / torch.clamp(depth, min=1e-6)
+        tx = tx + shift_factors[0] * inv_d
+        ty = ty + shift_factors[1] * inv_d
+        tz = tz + shift_factors[2] * inv_d
 
     # --- pixel projection -------------------------------------------------
     P = projection_matrix(cam.fovx, cam.fovy, static.znear, static.zfar)
     clip_x = P[0, 0] * tx
     clip_y = P[1, 1] * ty
-    w_clip = depth + 1e-7
+    w_clip = tz + 1e-7
     x2d = ((clip_x / w_clip + 1.0) * static.width - 1.0) * 0.5
     y2d = ((clip_y / w_clip + 1.0) * static.height - 1.0) * 0.5
 

@@ -132,13 +132,14 @@ class Scene:
         self._cache: Dict[Tuple[str, int], np.ndarray] = {}
         self._cache_lock = threading.Lock()
 
-    def _load(self, infos, idx: int) -> torch.Tensor:
+    def _load(self, infos, idx: int, fish: bool = False) -> torch.Tensor:
         info = infos[idx]
-        key = (info.image_path, id(infos))
+        path = info.fish_image_path if fish else info.image_path
+        key = (path, id(infos))
         with self._cache_lock:
             img = self._cache.get(key)
         if img is None:
-            img = load_image(info.image_path,
+            img = load_image(path,
                              (self.static.width, self.static.height),
                              info.white_background or self.white_background)
             with self._cache_lock:
@@ -152,6 +153,13 @@ class Scene:
 
     def test_image(self, idx: int) -> torch.Tensor:
         return self._load(self.test_infos, idx)
+
+    def fish_image(self, idx: int) -> torch.Tensor:
+        """The paired fisheye GT (`fish/images`) of train camera idx."""
+        return self._load(self.train_infos, idx, fish=True)
+
+    def test_fish_image(self, idx: int) -> torch.Tensor:
+        return self._load(self.test_infos, idx, fish=True)
 
     @property
     def n_train(self) -> int:

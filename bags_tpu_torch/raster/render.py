@@ -19,7 +19,7 @@ densification statistics).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -104,6 +104,8 @@ def render(
     probe2d: Optional[torch.Tensor] = None,
     abs_probe: Optional[torch.Tensor] = None,
     extra_color: Optional[torch.Tensor] = None,
+    shift_factors: Optional[torch.Tensor] = None,
+    timer: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
     """Render one camera view on the device of `xyz`.
 
@@ -111,12 +113,18 @@ def render(
     gradient is the per-Gaussian signed screen-space gradient sum.
     abs_probe: optional (N, 2) zeros; its gradient is the per-Gaussian sum
     of per-instance |screen gradients|.
+    shift_factors: optional (3,) entrance-pupil shift (`project_gaussians`).
+    timer: optional callable, called with "projection", "binning",
+    "gather" and "composite_fwd" after each of those stages (a stage
+    split; the caller synchronises).
     """
+    tick = timer or (lambda name: None)
     if bg is None:
         bg = xyz.new_zeros(3)
     proj = project_gaussians(
         xyz, scales, quats, opacity, sh_coeffs, cam, static, cfg.sh_degree,
-        align=align, extra_color=extra_color)
+        align=align, extra_color=extra_color, shift_factors=shift_factors)
+    tick("projection")
 
     x2d, y2d = proj.x2d, proj.y2d
     if probe2d is not None:
@@ -129,11 +137,14 @@ def render(
     bins = binning.bin_gaussians(
         dataclasses.replace(proj, x2d=x2d, y2d=y2d).detach(),
         tiles_x, tiles_y, cfg.max_instances, sort_key_depth=sort_key)
+    tick("binning")
 
     rows = gather_rows(build_packet_table(proj, x2d, y2d), abs_probe,
                        bins.gauss_id)
+    tick("gather")
     color4, t_final = composite_fwd(rows, bins.tile_start, bins.tile_count,
                                     tiles_x, tiles_y)
+    tick("composite_fwd")
     out = color4.transpose(1, 2)                                 # (T, NPIX, 4)
     color = out[..., :3] + t_final[..., None] * bg[None, None, :]
     img = tiles.tiles_to_image(color, tiles_x, tiles_y,

@@ -19,8 +19,8 @@ JAX tool's chain of calls inside one jit has no counterpart here.
 the functions `render()` calls; the profile CLI traces it.
 `tests/test_torch_profile.py` holds its loss and gradients equal to
 `render_step`'s, so that the two cannot drift apart.
-`train_step_stages` splits a training step of a trained model the same way
-(`chip_smoke.py` calls it).
+`train_step_stages` splits a training step of a trained model the same way,
+and `fisheye_step_stages` a fisheye step (`chip_smoke.py` calls both).
 """
 
 from __future__ import annotations
@@ -227,6 +227,164 @@ def train_step_stages(state, scene, cfg, device):
     print(f"train step: {bins.n_instances} instances, {int(alive.sum())} live of "
           f"{state.capacity}; step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
           + f"; peak memory {peak:.2f} GiB")
+
+
+def trace_calls(fn, trace_dir: str, reps: int = 1) -> dict:
+    """`fn` run once as a warm-up and `reps` times under `torch.profiler`
+    (CPU and CUDA), the Chrome trace written to `trace_dir/trace.json` and
+    summarised (`cli/profile.summarize_trace`: device ms per kernel name,
+    launches, device-busy ms and the span from the first kernel's start to
+    the last one's end)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..cli.profile import summarize_trace
+
+    fn()
+    torch.cuda.synchronize()
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    return summarize_trace(path)
+
+
+def print_busy(label: str, summary: dict, reps: int = 1, top: int = 8) -> None:
+    busy, span = summary["busy_ms"], summary["span_ms"]
+    print(f"{label}: device busy {busy / reps:.3f} ms of {span / reps:.3f} ms "
+          f"a call ({100 * busy / max(span, 1e-9):.1f}%), "
+          f"{summary['launches'] // reps} kernel launches a call; top kernels "
+          "(ms a call): " + "; ".join(
+              f"{ms / reps:.3f} {name[:60]}" for name, ms in sorted(
+                  summary["kernel_ms"].items(), key=lambda kv: -kv[1])[:top]))
+
+
+def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str,
+                        idx: int = 0, sh_degree: int = 0) -> dict:
+    """Where a fisheye training step of a CalibTrainer's state on camera
+    idx goes, on the card, at SH degree `sh_degree` (0: a training step
+    before the first SH ramp): `fisheye_train_step` run with a
+    synchronising timer after each stage (projection, binning, gather,
+    forward kernel, lens flow, warp and crop, loss, backward, optimisers;
+    3 reps, the last kept); then, timed apart with CUDA events, the
+    backward kernel, the lens flow (alone and with its backward), and its
+    pieces with their backwards: the Newton inverse of the control points,
+    the upsampling of the control flow and the warp with the crop; a
+    profiler trace of one step (device-busy share, kernels by time); 5
+    whole steps (host clock) and the peak memory. Prints them and returns
+    {"stages_ms", "step_ms", "peak_gib", "instances", "trace"}."""
+    from ..calib.distortion import compute_flow
+    from ..calib.iresnet import iresnet_forward
+    from ..train.calibrated import fisheye_train_step
+    from ..utils.image import center_crop_resample, grid_sample, resize_bilinear
+
+    setup, cfg = trainer.setup, trainer.cfg
+    rcfg = RenderConfig(sh_degree=sh_degree)
+    opt_lens, use_vig = trainer.lens_window(1)
+
+    def step(timer=None):
+        return fisheye_train_step(trainer.state, fish_gt, trainer.p_view, idx,
+                                  trainer.bg, setup, rcfg, cfg,
+                                  trainer.schedules, opt_lens, use_vig,
+                                  timer=timer)
+
+    stages = {}
+    for rep in range(3):
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def tick(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name] = (now - last[0]) * 1e3
+            last[0] = now
+
+        step(tick)
+
+    base = trainer.base
+    cam = base.cams[idx]
+    with torch.no_grad():
+        proj = project_gaussians(base.g.xyz, base.g.scaling(), base.g.quats,
+                                 base.g.opacity(base.alive), base.g.sh_coeffs(),
+                                 cam, setup.render_static, sh_degree,
+                                 align=base.align)
+        tx, ty = tiles.tile_grid(setup.render_static.width,
+                                 setup.render_static.height)
+        bins = binning.bin_gaussians(proj, tx, ty)
+        rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
+            1, bins.gauss_id)
+        comp = (rows, bins.tile_start, bins.tile_count, tx, ty)
+        color4, t_final = composite.composite_fwd(*comp)
+        g_c, g_tf = torch.randn_like(color4), torch.randn_like(t_final)
+        stages["backward_kernel"] = timed(lambda: composite.composite_bwd(
+            *comp, g_c, g_tf, color4, t_final), device, 10)
+    stages["backward_rest"] = stages["backward"] - stages["backward_kernel"]
+
+    lens, p_view = trainer.state.lens, trainer.p_view
+    apply2gt = cfg.calib.apply2gt
+    ps = torch.stack([1.0 / torch.tan(cam.fovx * 0.5),
+                      1.0 / torch.tan(cam.fovy * 0.5)])
+    params = lens.parameters()
+
+    def with_grad(f, leaves):
+        out = f()
+        torch.autograd.grad(out, leaves, torch.ones_like(out))
+
+    def flow():
+        return compute_flow(lens, p_view, setup.grid_hw, ps, setup.flow_hw,
+                            sensor_to_frustum=apply2gt)
+
+    def inverse():
+        return iresnet_forward(lens, p_view, sensor_to_frustum=apply2gt)
+
+    ctrl = inverse().detach().reshape(*setup.grid_hw, 2).permute(2, 0, 1)
+    ctrl = ctrl.contiguous().requires_grad_(True)
+    image = (fish_gt if apply2gt else torch.rand(
+        (3, setup.render_static.height, setup.render_static.width),
+        device=device)).requires_grad_(True)
+    fl = flow().detach().requires_grad_(True)
+
+    def warp():
+        w = grid_sample(image, fl)
+        return w if apply2gt else center_crop_resample(w, *setup.fish_hw)
+
+    with torch.no_grad():
+        stages["lens_flow_alone"] = timed(flow, device, 5)
+        stages["lens_inverse_alone"] = timed(inverse, device, 5)
+    stages["lens_flow_fwd_bwd_alone"] = timed(lambda: with_grad(flow, params),
+                                              device, 5)
+    stages["lens_inverse_fwd_bwd_alone"] = timed(
+        lambda: with_grad(inverse, params), device, 5)
+    stages["flow_upsample_fwd_bwd_alone"] = timed(lambda: with_grad(
+        lambda: resize_bilinear(ctrl, setup.flow_hw), [ctrl]), device, 5)
+    stages["warp_crop_fwd_bwd_alone"] = timed(lambda: with_grad(
+        warp, [image, fl]), device, 5)
+
+    summary = trace_calls(step, trace_dir)
+    print_busy("fisheye step trace", summary)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print("fisheye step stages_ms " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
+    print(f"fisheye step (SH {sh_degree}): {bins.n_instances} instances at "
+          f"{setup.render_static.width}x{setup.render_static.height}, "
+          f"{int(base.alive.sum())} live of {base.capacity}, control grid "
+          f"{setup.grid_hw}, flow {setup.flow_hw}; step_ms "
+          + " ".join(f"{x:.2f}" for x in step_ms) + f"; peak memory {peak:.2f} GiB")
+    return {"stages_ms": stages, "step_ms": step_ms, "peak_gib": peak,
+            "instances": bins.n_instances, "trace": summary}
 
 
 def main(argv=None) -> dict:

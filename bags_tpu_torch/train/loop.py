@@ -188,9 +188,14 @@ class Trainer:
             self._io.shutdown(wait=True)
             self._io = None
 
+    @property
+    def base(self) -> TrainState:
+        """The TrainState (a calibrated trainer's state wraps it)."""
+        return getattr(self.state, "base", self.state)
+
     def _refill_camera_stack(self) -> None:
         if not self._camera_stack:
-            n = int(self.state.cams.fovx.shape[0])
+            n = int(self.base.cams.fovx.shape[0])
             self._camera_stack = list(self._rng.permutation(n))
 
     def _next_camera(self) -> int:
@@ -218,7 +223,10 @@ class Trainer:
         self._prefetched = (nidx, self._io.submit(self.gt_images, nidx))
         return gt
 
-    def step(self, idx: int, gt: torch.Tensor) -> StepMetrics:
+    def step(self, idx: int, gt: torch.Tensor, it: Optional[int] = None
+             ) -> StepMetrics:
+        """One step on camera idx; `it`, the iteration of `run`, matters
+        only to a calibrated trainer's lens window."""
         rcfg = dataclasses.replace(self.rcfg, sh_degree=self.active_sh_degree)
         return train_step(self.state, gt, idx, self.bg, self.static, rcfg,
                           self.cfg)
@@ -235,23 +243,23 @@ class Trainer:
             if it % 1000 == 0 and self.active_sh_degree < self.max_sh_degree:
                 self.active_sh_degree += 1
             idx = self._next_camera()
-            metrics = self.step(idx, self._fetch_gt(idx))
+            metrics = self.step(idx, self._fetch_gt(idx), it)
 
             if it < opt.densify_until_iter:
                 # densification cadence (train.py:374-389)
                 if it > opt.densify_from_iter and \
                         it % opt.densification_interval == 0:
                     max_screen = 20.0 if it > opt.opacity_reset_interval else 0.0
-                    before = int(self.state.alive.sum())
-                    res = densify_step(self.state, self.cfg,
+                    before = int(self.base.alive.sum())
+                    res = densify_step(self.base, self.cfg,
                                        self.scene_extent, max_screen)
                     self.densify_log.append(
                         (it, res.n_cloned, res.n_split, res.n_pruned, before,
-                         int(self.state.alive.sum())))
+                         int(self.base.alive.sum())))
                 if it % opt.opacity_reset_interval == 0 or (
                         self.cfg.model.white_background
                         and it == opt.densify_from_iter):
-                    opacity_reset_step(self.state)
+                    opacity_reset_step(self.base)
 
             if log_every and it % log_every == 0:
                 history.append((it, float(metrics.loss),

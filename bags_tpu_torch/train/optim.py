@@ -143,3 +143,42 @@ def row_adam_update(cams: CameraParams, st: RowAdamState,
         st.mu[f][idx] = mu
         st.nu[f][idx] = nu
     st.count[idx] = t
+
+
+@dataclasses.dataclass
+class AdamMoments:
+    """optax.scale_by_adam's state (b1 0.9, b2 0.999, eps `ADAM_EPS`,
+    eps_root 0) over named tensors: one step count and the first and second
+    moments. The learning rate is applied outside it, from a schedule of the
+    global iteration (the calibration groups)."""
+
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+def adam_moments_init(params: Dict[str, torch.Tensor]) -> AdamMoments:
+    return AdamMoments(
+        count=0,
+        mu={k: torch.zeros_like(p, requires_grad=False) for k, p in params.items()},
+        nu={k: torch.zeros_like(p, requires_grad=False) for k, p in params.items()})
+
+
+@torch.no_grad()
+def adam_moments_step(params: Dict[str, torch.Tensor],
+                      grads: Dict[str, torch.Tensor], st: AdamMoments,
+                      lr: float) -> None:
+    """One Adam step of every tensor in `params` in place. Every tensor
+    steps, a zero gradient included: its moments decay and it moves by the
+    decayed first moment, as optax's update does."""
+    b1, b2 = BETAS
+    st.count += 1
+    bc1 = 1.0 - b1 ** st.count
+    bc2 = 1.0 - b2 ** st.count
+    for k, p in params.items():
+        g = grads[k]
+        mu = b1 * st.mu[k] + (1 - b1) * g
+        nu = b2 * st.nu[k] + (1 - b2) * g * g
+        p -= lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS))
+        st.mu[k] = mu
+        st.nu[k] = nu

@@ -113,6 +113,111 @@ def write_colmap_scene(root: str, cams, width: int, height: int,
     return paths
 
 
+def known_lens_fisheye(image: torch.Tensor, setup, p_view: torch.Tensor,
+                       coeff) -> torch.Tensor:
+    """A render at the fisheye setup's extended FoV (3, H, W) warped the way
+    the fisheye mode warps, through the closed-form inverse of the
+    OPENCV_FISHEYE polynomial `coeff` in place of the lens net: the GT of a
+    known-lens dataset (as `tools/lens_recovery.py` makes it)."""
+    from ..calib.distortion import analytic_inverse_flow, apply_distortion
+
+    proj = [1.0 / np.tan(setup.fovx / 2), 1.0 / np.tan(setup.fovy / 2)]
+    flow = analytic_inverse_flow(coeff, p_view, setup.grid_hw, proj,
+                                 setup.flow_hw)
+    return apply_distortion(None, p_view, setup.grid_hw, image, None,
+                            setup.flow_hw, final_hw=setup.fish_hw,
+                            flow=flow)[0]
+
+
+KNOWN_LENS = (-0.12, 0.02, 0.0, 0.0)   # tools/lens_recovery.py's true lens
+
+
+def fisheye_toy(device, gt: torch.Tensor = None) -> dict:
+    """A toy fisheye training setup (apply2render; lens, vignetting and the
+    pupil shift trained): the 700 SH-3 Gaussians of the 64x48 toy scene,
+    nudged off their true positions, two cameras at `--preset fisheye`'s
+    extended FoV, a 2-block lens net of width 32 (weights x 0.2), and the
+    fisheye GT of camera 1 through the known lens KNOWN_LENS unless `gt` is
+    given. Returns dict(state, schedules, cfg, setup, p_view, gt)."""
+    import dataclasses
+
+    from .. import convert
+    from ..calib.iresnet import init_iresnet_params
+    from ..raster.render import RenderConfig, render
+    from ..train import calibrated
+    from ..train.config import TrainConfig
+    from ..train.loop import init_train_state
+    from ..model.gaussians import Gaussians
+
+    dev = resolve_device(device)
+    w, h, fov = 64, 48, 0.8
+    fx, fy = w / (2 * np.tan(fov / 2)), h / (2 * np.tan(fov / 2))
+    cfg = TrainConfig()
+    cfg.model.sh_degree = 3
+    c = cfg.calib
+    c.opt_cam = c.opt_intrinsic = c.opt_distortion = c.outside_rasterizer = True
+    c.opt_shift, c.start_vignetting, c.iresnet_lr = True, 0, 1e-4
+    c.flow_scale, c.control_point_sample_scale = (2.0, 2.0), 8
+    sc = make_toy_scene(n=700, width=w, height=h, sh_degree=3, seed=0,
+                        device=dev)
+    setup = calibrated.make_fisheye_setup(fx, fy, (w, h), (w, h),
+                                          flow_scale=c.flow_scale,
+                                          control_point_sample_scale=8)
+    p_view = calibrated.fisheye_control_points(setup, fx, fy, c.flow_scale,
+                                               device=dev)
+    ext = dict(fovx=torch.full_like(sc["cam"].fovx, setup.fovx),
+               fovy=torch.full_like(sc["cam"].fovy, setup.fovy))
+    cams = CameraParams.stack([
+        dataclasses.replace(sc["cam"], **ext),
+        dataclasses.replace(sc["cam"], t_init=torch.tensor([0.1, 0.0, 0.0],
+                                                           device=dev), **ext)])
+    if gt is None:
+        with torch.no_grad():
+            img = render(sc["xyz"], sc["scales"], sc["quats"], sc["opacity"],
+                         sc["sh_coeffs"], cams[1], setup.render_static,
+                         RenderConfig(sh_degree=3)).render
+            gt = known_lens_fisheye(img, setup, p_view, KNOWN_LENS)
+    op = sc["opacity"]
+    nudge = 0.02 * torch.sin(torch.arange(3 * 700, device=dev,
+                                          dtype=torch.float32)).reshape(-1, 3)
+    g = Gaussians(xyz=sc["xyz"] + nudge,
+                  sh_dc=sc["sh_coeffs"][:, :1].contiguous(),
+                  sh_rest=sc["sh_coeffs"][:, 1:].contiguous(),
+                  scales_log=torch.log(sc["scales"]), quats=sc["quats"],
+                  opacity_raw=torch.log(op / (1 - op)))
+    base = init_train_state(g, torch.ones(700, dtype=torch.bool, device=dev),
+                            cams, cfg, 2.0)
+    lens = init_iresnet_params(hidden=32, n_blocks=2, n_layers=2, seed=3)
+    lens_np = {f: [[(t.detach() * (0.2 if f == "weights" else 1.0)).numpy()
+                    for t in blk] for blk in getattr(lens, f)]
+               for f in ("weights", "biases", "u_vecs")}
+    state, schedules = convert.calib_state_from_numpy(base, cfg, {
+        "lens": lens_np,
+        "vig": {"a_k": np.full(4, 0.01, np.float32),
+                "beta_k": np.linspace(2, 8, 4).astype(np.float32)},
+        "shift": np.zeros(3, np.float32)}, device=dev)
+    return dict(state=state, schedules=schedules, cfg=cfg, setup=setup,
+                p_view=p_view, gt=gt.to(dev))
+
+
+def write_fisheye_pair(root: str, image_paths, fish_images, width: int,
+                       height: int, fx: float, fy: float, coeff) -> None:
+    """The fisheye half of a COLMAP dataset at `root`: `fish/images/<name>`
+    beside each perspective image path ((H, W, 3) uint8 each), and
+    `fish/sparse/0/cameras.bin` with one OPENCV_FISHEYE camera whose
+    distortion coefficients are `coeff` (k1..k4), which the fisheye mode's
+    lens pre-fit reads."""
+    fish = os.path.join(root, "fish")
+    os.makedirs(os.path.join(fish, "images"), exist_ok=True)
+    os.makedirs(os.path.join(fish, "sparse", "0"), exist_ok=True)
+    for path, img in zip(image_paths, fish_images):
+        write_image(os.path.join(fish, "images", os.path.basename(path)), img)
+    colmap.write_cameras_binary(
+        os.path.join(fish, "sparse", "0", "cameras.bin"),
+        {1: colmap.ColmapCamera(1, "OPENCV_FISHEYE", width, height, np.array(
+            [fx, fy, width / 2, height / 2, *[float(c) for c in coeff]]))})
+
+
 def write_image(path: str, img: np.ndarray) -> None:
     """(H, W, 3) uint8 -> PNG."""
     from PIL import Image

@@ -19,7 +19,9 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      `composite_bwd_plain` on the same scenes with seeded random cotangents:
      |kernel - plain| <= 1e-5 + 1e-3 |plain| element-wise, and on the dense
      tile, where float32 rounding alone exceeds that, the full-width
-     criterion of step 7; two backward launches bit-identical; the
+     criterion of step 7 and, beside it, no more entries off the float64
+     replay than the plain version's own plus 1e-4 of the entries; two
+     backward launches bit-identical; the
      forward and backward kernels on each scene's alpha-edge variant (one
      pair of every instance within 1e-6 relative of 1/255,
      `alpha_boundary_rows`): the forward within 2e-5 of its plain version
@@ -77,9 +79,32 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      forward kernel (the variants timed in turns with it), each ablation
      mode as on view 0, and the backward kernel at step 7's criterion,
      bit-identical across two launches;
- 11. prints the kernels line (JSON: the forward, the backward, the
+ 11. the fisheye path (slice 4) at full width. First a toy fisheye step
+     (lens inverse, warp and crop, vignetting, pupil shift) through both
+     kernels on the card against the same step on the CPU: loss and image
+     within 2e-5, every gradient within atol 1e-5, rtol 1e-3. Then
+     `fish/images` for the 8 views (the plain version's render at the
+     extended FoV of `--preset fisheye`, warped through the known lens
+     (-0.12, 0.02, 0, 0)) and `fish/sparse/0` (OPENCV_FISHEYE, -0.04),
+     and `bags_tpu_torch.cli.train --preset fisheye --init_type sfm` for
+     30 iterations (the lens pre-fit's 5,000 steps first; densify threshold
+     5e-8 as in step 6). Checks: one forward and one backward launch per
+     step, a finite falling loss, the lens parameters changed between the
+     checkpoints after steps 1 and 30, the checkpoint's lens leaves, the
+     render CLI restoring the model and writing lens-warped pairs against
+     the fisheye GT (one launch a view), the Newton inverse's residual on
+     the trained lens's control points <= 1e-4, and both kernels on the
+     extended-FoV render against their plain versions (step 5's and step
+     7's full-width criteria). Prints the pre-fit's seconds, the flow error
+     against the known lens after steps 1 and 30, the render's instances
+     and the kernels' times and bounds on it, one step split by stage
+     (`tools/stagebench.fisheye_step_stages`, with a profiler trace), the
+     step's ms, the peak memory, and a trace of ten pre-fit steps;
+ 12. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
-     every variant's under "variants") and, last, the device line (JSON).
+     every variant's under "variants"; the forward's and the backward's
+     launches by path, fisheye included, and their numbers on the
+     extended-FoV render) and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -249,6 +274,20 @@ def test_size_checks(device):
             check(max(rel_l2) <= 1e-4 and off <= 1e-4 * d_plain.numel(),
                   f"{name}: backward kernel vs plain: relative L2 {rel_l2}, "
                   f"{off} entries off")
+            # Beside it, a gate that separates rounding from a fault: against
+            # the float64 replay the kernel may be off in no more entries
+            # than the plain version's own float32 computation is, plus a
+            # margin of 1e-4 of the entries (31.8 here, the count the check
+            # above allows): over 18 cotangent draws the plain version was
+            # 0-40 entries off the replay, and a fault in the kernel moves
+            # whole rows, far past that.
+            margin = 1e-4 * d_plain.numel()
+            print(f"test size {name} backward against the float64 replay: "
+                  f"kernel {kern_off} entries off, plain {own_off}, margin "
+                  f"{margin:.1f}")
+            check(kern_off <= own_off + margin,
+                  f"{name}: backward kernel {kern_off} entries off the float64 "
+                  f"replay, plain {own_off} + margin {margin:.1f}")
         else:
             check(off == 0, f"{name}: {off} backward entries off by more than "
                             f"1e-5 + 1e-3 |plain|")
@@ -1056,6 +1095,337 @@ def train_view_variants(state, scene):
     return out
 
 
+# The known lens of the fisheye phase: tools/lens_recovery.py's true
+# OPENCV_FISHEYE coefficients make the GT (`utils/testing.KNOWN_LENS`), its
+# initial ones go into fish/sparse/0 for the lens pre-fit (near the truth,
+# not at it).
+FISH_INIT_COEFF = (-0.04, 0.0, 0.0, 0.0)
+FISH_FLOW_SCALE = (2.0, 2.0)         # --preset fisheye
+FISH_SAMPLE_SCALE = 16               # --preset fisheye
+
+
+def fisheye_geometry(scene, device):
+    """--preset fisheye's extended-FoV setup and control points for the
+    dataset's focal lengths (full width: 1600x1080, 100x67 points)."""
+    from bags_tpu_torch.train import calibrated
+
+    info = scene.train_infos[0]
+    setup = calibrated.make_fisheye_setup(
+        info.focal_x, info.focal_y, (WIDTH, HEIGHT), (WIDTH, HEIGHT),
+        flow_scale=FISH_FLOW_SCALE, control_point_sample_scale=FISH_SAMPLE_SCALE)
+    p_view = calibrated.fisheye_control_points(
+        setup, info.focal_x, info.focal_y, FISH_FLOW_SCALE, device=device)
+    return setup, p_view
+
+
+def extended(cam, setup):
+    """A camera with the fisheye setup's extended FoVs."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(cam, fovx=torch.full_like(cam.fovx, setup.fovx),
+                               fovy=torch.full_like(cam.fovy, setup.fovy))
+
+
+def write_fisheye_gt(model, data, device):
+    """The fisheye half of the dataset (step 11): for each of the 8 views,
+    the plain version's render of the 1M-Gaussian model at the extended FoV
+    warped through the analytic lens KNOWN_LENS into `fish/images`, and
+    `fish/sparse/0/cameras.bin` (OPENCV_FISHEYE, FISH_INIT_COEFF)."""
+    import numpy as np
+    import torch
+    from bags_tpu_torch.data.scene import Scene
+    from bags_tpu_torch.model.gaussians import load_ply
+    from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.utils.testing import (KNOWN_LENS, known_lens_fisheye,
+                                              write_fisheye_pair)
+
+    scene = Scene(data, eval_split=True, sh_degree=3, device=device)
+    g, alive = load_ply(os.path.join(model, "point_cloud", "iteration_30000",
+                                     "point_cloud.ply"), device=device)
+    setup, p_view = fisheye_geometry(scene, device)
+    paths, images = [], []
+    with torch.no_grad():
+        for infos, cams in ((scene.test_infos, scene.test_cams),
+                            (scene.train_infos, scene.train_cams)):
+            for i, info in enumerate(infos):
+                rows, bins, tx, ty = frame(g, alive, extended(cams[i], setup),
+                                           setup.render_static, 3)
+                c4, _ = composite_tiles_plain(rows, bins.tile_start,
+                                              bins.tile_count, tx, ty)
+                img = torch.clamp(to_image(c4, tx, ty, setup.render_static), 0, 1)
+                fish = known_lens_fisheye(img, setup, p_view, KNOWN_LENS)
+                paths.append(info.image_path)
+                images.append(np.round(fish.permute(1, 2, 0).cpu().numpy() * 255)
+                              .astype(np.uint8))
+    info = scene.train_infos[0]
+    write_fisheye_pair(data, paths, images, WIDTH, HEIGHT, info.focal_x,
+                       info.focal_y, FISH_INIT_COEFF)
+    print(f"fisheye GT: {len(images)} views at {setup.fish_hw}, rendered at "
+          f"FoV {setup.fovx:.4f} x {setup.fovy:.4f} "
+          f"({setup.render_static.width}x{setup.render_static.height}), flow "
+          f"{setup.flow_hw}, control grid {setup.grid_hw}")
+
+
+def fisheye_toy_check(device):
+    """A toy fisheye step (`utils/testing.fisheye_toy`: apply2render, lens,
+    vignetting and shift trained) on the card through both kernels against
+    the same step on the CPU through the plain versions, from the same
+    state and GT: loss and warped image within 2e-5; the gradients of the
+    Gaussians, the camera row, the lens, vignetting and the shift within
+    atol 1e-5, rtol 1e-3 (step 11)."""
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.render import RenderConfig
+    from bags_tpu_torch.train.calibrated import fisheye_train_step
+    from bags_tpu_torch.utils.testing import fisheye_toy
+
+    out, gt = {}, None
+    for where, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        t = fisheye_toy(dev, gt)
+        gt = t["gt"].cpu()
+        before = composite.fwd_launches, composite.bwd_launches
+        out[where] = fisheye_train_step(
+            t["state"], t["gt"], t["p_view"], 0, torch.zeros(3, device=dev),
+            t["setup"], RenderConfig(sh_degree=3), t["cfg"], t["schedules"],
+            True, True)
+    torch.cuda.synchronize()
+    check((composite.fwd_launches, composite.bwd_launches)
+          == (before[0] + 1, before[1] + 1),
+          "toy fisheye step: the card's step did not launch both kernels")
+    cpu, card = out["cpu"], out["card"]
+    loss_d = abs(float(card.loss) - float(cpu.loss))
+    img_d = float((card.image.cpu() - cpu.image).abs().max())
+    print(f"toy fisheye step card vs cpu: loss {float(card.loss):.6f} vs "
+          f"{float(cpu.loss):.6f}, image max_abs_diff {img_d:.3e}")
+    check(loss_d <= 2e-5 and img_d <= 2e-5,
+          f"toy fisheye step: loss diff {loss_d}, image diff {img_d}")
+    check(set(card.grads) == set(cpu.grads), "toy fisheye step: gradient names")
+    worst = {}
+    for k, v in cpu.grads.items():
+        got = card.grads[k].detach().cpu()
+        worst[k] = float((got - v).abs().max())
+        check(bool(torch.isfinite(got).all()) and torch.allclose(
+            got, v, atol=1e-5, rtol=1e-3), f"toy fisheye gradient {k}: max diff "
+                                            f"{worst[k]}")
+    print("toy fisheye gradients card vs cpu, max abs diff: "
+          + json.dumps({k: f"{v:.2e}" for k, v in worst.items()}))
+
+
+def fisheye_train_path(data):
+    """Slice 4's main path: `cli.train --preset fisheye` at full width
+    (step 11), checkpoints after steps 1 and 30. Returns (model path,
+    forward launches, backward launches, summary)."""
+    import math
+
+    import numpy as np
+    import torch
+    from bags_tpu_torch.cli import train as train_cli
+    from bags_tpu_torch.raster import composite
+
+    model = os.path.join(WORK, "fish_model")
+    argv = ["-s", data, "-m", model, "--preset", "fisheye", "--init_type", "sfm",
+            "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "10",
+            "--densification_interval", "10", "--densify_until_iter", "25",
+            "--test_iterations", str(TRAIN_ITERS),
+            "--save_iterations", str(TRAIN_ITERS),
+            "--checkpoint_iterations", "1", str(TRAIN_ITERS), "--device", "cuda",
+            "--densify_grad_threshold", "5e-8"]     # as in step 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    summary = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    losses, steps = summary["losses"], summary["step_s"]
+    print(f"fisheye train CLI: {len(losses)} steps in {train_s:.1f} s (lens "
+          f"pre-fit {summary['lens_prefit_s']:.2f} s of it), forward launches "
+          f"{fwd} ({summary['eval_renders']} of them evaluation renders), "
+          f"backward launches {bwd}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("fisheye train losses " + " ".join(f"{x:.5f}" for x in losses))
+    print("fisheye train step_ms " + " ".join(f"{1e3 * x:.1f}" for x in steps))
+    print(f"fisheye train densify: {summary['densify']}")
+    print("\n".join(summary["eval"]))
+    check(len(losses) == TRAIN_ITERS, f"{len(losses)} fisheye training steps")
+    check(bwd == TRAIN_ITERS, f"{bwd} backward launches for {TRAIN_ITERS} steps")
+    check(fwd == TRAIN_ITERS + summary["eval_renders"],
+          f"{fwd} forward launches for {TRAIN_ITERS} steps and "
+          f"{summary['eval_renders']} evaluation renders")
+    check(all(math.isfinite(x) for x in losses), "non-finite fisheye loss")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"fisheye loss did not fall: first 5 {first:.5f}, "
+                        f"last 5 {last:.5f}")
+    check(summary["eval"], "no fisheye evaluation lines")
+    ck = {it: np.load(os.path.join(model, f"chkpnt{it}.npz"))
+          for it in (1, TRAIN_ITERS)}
+    lens_keys = [k for k in ck[TRAIN_ITERS].files if k.startswith("v2|.lens.")]
+    check(len(lens_keys) == 3 * 5 * 5 and all(
+        k in ck[TRAIN_ITERS].files for k in ("v2|.vig.a_k", "v2|.shift",
+                                             "v2|.lens_opt.count")),
+          f"the checkpoint's lens leaves: {len(lens_keys)}")
+    check(int(ck[TRAIN_ITERS]["v2|.lens_opt.count"]) == TRAIN_ITERS,
+          "the lens did not step every iteration")
+    moved = max(float(np.abs(ck[TRAIN_ITERS][k] - ck[1][k]).max())
+                for k in lens_keys)
+    print(f"fisheye lens: largest change of a lens parameter from step 1 to "
+          f"step {TRAIN_ITERS}: {moved:.3e}")
+    check(moved > 0, "the lens parameters did not change")
+    return model, fwd, bwd, summary
+
+
+def fisheye_restore_path(model, data):
+    """The render CLI restores the fisheye model and writes lens-warped
+    pairs against the fisheye GT (step 11). Returns the forward launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.raster import composite
+
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    summary = render_cli.main(["-m", model, "-s", data, "--device", "cuda"])
+    torch.cuda.synchronize()
+    fwd = composite.fwd_launches
+    psnrs = {k: v["psnr"] for k, v in summary.items()}
+    n_views = sum(len(v) for v in psnrs.values())
+    print(f"fisheye restore: {n_views} views in {time.perf_counter() - t0:.1f} "
+          f"s, PSNR {psnrs}, forward launches {fwd}")
+    check(sorted(psnrs) == ["test", "train"] and n_views == N_CAMS,
+          f"fisheye restore rendered {psnrs}")
+    check(fwd == n_views, f"{fwd} forward launches for {n_views} views")
+    check(all(math.isfinite(p) for v in psnrs.values() for p in v),
+          "non-finite fisheye PSNR after restore")
+    test_dir = summary["test"]["dir"]
+    for sub in ("renders", "gt"):
+        names = os.listdir(os.path.join(test_dir, sub))
+        check(len(names) == len(psnrs["test"]), f"{sub}: {names}")
+    gt = np.asarray(Image.open(os.path.join(test_dir, "gt", "00000.png")), float)
+    ren = np.asarray(Image.open(os.path.join(test_dir, "renders", "00000.png")))
+    name = os.path.basename(sorted(os.listdir(os.path.join(data, "fish", "images")))[0])
+    fish = np.asarray(Image.open(os.path.join(data, "fish", "images", name)), float)
+    persp = np.asarray(Image.open(os.path.join(data, "images", name)), float)
+    d_fish, d_persp = np.abs(gt - fish).mean(), np.abs(gt - persp).mean()
+    print(f"fisheye restore: test pair {ren.shape}, its GT off the fisheye "
+          f"image by {d_fish:.3f}, off the perspective image by {d_persp:.3f}")
+    check(ren.shape == (HEIGHT, WIDTH, 3), f"fisheye render shape {ren.shape}")
+    check(d_fish < 0.25 * d_persp, "the restored pairs' GT is not the fisheye GT")
+    return fwd
+
+
+def prefit_trace(trainer, device):
+    """Ten steps of the lens pre-fit (a full-width lens net on the 3,200
+    points of the dataset's COLMAP coefficients) under the profiler: the
+    device's busy share and the kernels by time (step 11)."""
+    import numpy as np
+    from bags_tpu_torch.calib import distortion
+    from bags_tpu_torch.calib.iresnet import init_iresnet_params
+    from bags_tpu_torch.tools.stagebench import print_busy, trace_calls
+
+    fx, fy = trainer.focal
+    fh, fw = trainer.setup.fish_hw
+    K = np.array([[fx, 0, fw / 2], [0, fy, fh / 2], [0, 0, 1.0]])
+    inputs, targets = distortion.colmap_fit_points(K, fw, fh, FISH_INIT_COEFF,
+                                                   device)
+    lens = init_iresnet_params(device=device)
+    summary = trace_calls(lambda: distortion.fit_iresnet_to_targets(
+        lens, inputs, targets, iters=10), os.path.join(WORK, "prefit_trace"))
+    print_busy("lens pre-fit, 10 Adam steps", summary)
+
+
+def fisheye_checks(model, data, device):
+    """On the trained fisheye model (step 11): the Newton inverse's residual
+    on the control points (<= 1e-4), the recovered flow's error against the
+    analytic lens after steps 1 and 30, both kernels on the extended-FoV
+    render of train view 0 against their plain versions (with the fisheye
+    loss's cotangents) with their times and bounds, and the fisheye step
+    split by stage. Returns the forward's and the backward's numbers on
+    that view."""
+    import numpy as np
+    import torch
+    from bags_tpu_torch import convert
+    from bags_tpu_torch.calib import distortion
+    from bags_tpu_torch.calib.iresnet import inverse_residual
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.raster import composite, tiles
+    from bags_tpu_torch.raster.tiles import composite_bwd_plain, composite_tiles_plain
+    from bags_tpu_torch.tools import stagebench
+    from bags_tpu_torch.train.losses import photometric_loss
+    from bags_tpu_torch.utils.profiling import (bound, bwd_bytes, bwd_ops, fwd_bytes,
+                                                fwd_ops, pair_counts, timed)
+    from bags_tpu_torch.utils.testing import KNOWN_LENS
+
+    _, scene, trainer, _ = render_cli.restore_trainer(model, data, -1, device)
+    setup, p_view, lens = trainer.setup, trainer.p_view, trainer.state.lens
+    res = inverse_residual(lens, p_view)
+    proj = [1 / np.tan(setup.fovx / 2), 1 / np.tan(setup.fovy / 2)]
+    errs = {}
+    for it in (1, TRAIN_ITERS):
+        ck = np.load(os.path.join(model, f"chkpnt{it}.npz"))
+        net = convert.iresnet_from_numpy({f: [[ck[f"v2|.lens.{f}[{b}][{l}]"]
+                                               for l in range(5)] for b in range(5)]
+                                          for f in ("weights", "biases", "u_vecs")},
+                                         device)
+        errs[it] = distortion.flow_error_px(net, KNOWN_LENS, p_view, proj,
+                                            setup.render_static.width)
+    print(f"fisheye lens: Newton inverse residual on the {p_view.shape[0]} "
+          f"control points {res:.3e}; flow error against the true lens "
+          f"{errs[1]:.3f} px after step 1, {errs[TRAIN_ITERS]:.3f} px after "
+          f"step {TRAIN_ITERS} (render pixels)")
+    check(res <= 1e-4, f"fisheye lens inverse residual {res} > 1e-4")
+
+    base = trainer.base
+    cam = base.cams[0]
+    fish_gt = scene.fish_image(0)
+    with torch.no_grad():
+        rows, bins, tx, ty = frame(base.g, base.alive, cam, setup.render_static, 3)
+    args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+    with torch.no_grad():
+        fwd_err = fwd_agreement("fisheye view 0", composite.composite_fwd(*args),
+                                composite_tiles_plain(*args))
+        fwd_ms = timed(lambda: composite.composite_fwd(*args), device, 20)
+        fwd_plain = timed(lambda: composite_tiles_plain(*args), device, 3)
+        color, t_final = composite.composite_fwd(*args)
+    c4 = color.clone().requires_grad_(True)
+    img = tiles.tiles_to_image(c4.transpose(1, 2)[..., :3], tx, ty,
+                               setup.render_static.width, setup.render_static.height)
+    ps = torch.stack([1 / torch.tan(cam.fovx * 0.5), 1 / torch.tan(cam.fovy * 0.5)])
+    warped, mask, _ = distortion.apply_distortion(
+        lens, p_view, setup.grid_hw, img, ps, setup.flow_hw, final_hw=setup.fish_hw)
+    g_color = torch.autograd.grad(photometric_loss(warped, fish_gt * mask), c4)[0]
+    bwd_args = (*args, g_color.contiguous(), torch.zeros_like(t_final), color, t_final)
+    counts = pair_counts(*args)
+    with torch.no_grad():
+        bwd_err = bwd_full_width_check("fisheye view 0 backward", bwd_args)
+        bwd_ms = timed(lambda: composite.composite_bwd(*bwd_args), device, 20)
+        bwd_plain = timed(lambda: composite_bwd_plain(*bwd_args), device, 3)
+    fb = bound(fwd_bytes(bins.n_instances, tx * ty), fwd_ops(counts))
+    bb = bound(bwd_bytes(bins.n_instances, tx * ty), bwd_ops(counts))
+    print(f"fisheye view 0 ({setup.render_static.width}x"
+          f"{setup.render_static.height} at the extended FoV): "
+          f"{bins.n_instances} instances, max tile {int(bins.tile_count.max())}; "
+          f"forward {fwd_ms:.4f} ms (plain {fwd_plain:.3f}, bound {fb[0]:.4f} "
+          f"{fb[1]}), backward {bwd_ms:.4f} ms (plain {bwd_plain:.3f}, bound "
+          f"{bb[0]:.4f} {bb[1]})")
+    stagebench.fisheye_step_stages(trainer, fish_gt, device,
+                                   os.path.join(WORK, "fish_trace"))
+    prefit_trace(trainer, device)
+
+    def numbers(ms, plain_ms, bnd, err):
+        return {"fisheye_view0_ms": ms, "fisheye_view0_plain_ms": plain_ms,
+                "fisheye_view0_bound_ms": bnd[0], "fisheye_view0_bound_by": bnd[1],
+                "fisheye_view0_max_abs_err": err,
+                "fisheye_view0_instances": bins.n_instances}
+    return numbers(fwd_ms, fwd_plain, fb, fwd_err), numbers(bwd_ms, bwd_plain, bb,
+                                                           bwd_err)
+
+
 def main():
     import torch
 
@@ -1118,7 +1488,9 @@ def main():
     fwd_entry["launches_by_path"]["train_cli"] = train_fwd
 
     # 7. the backward kernel at full width on the trained model
-    cfg, scene, state, _ = render_cli.restore_trained(train_model, data, -1, device)
+    cfg, scene, trainer, _ = render_cli.restore_trainer(train_model, data, -1, device)
+    state = trainer.state
+    del trainer
     fwd_train, bwd_entry = backward_full_width(state, scene, device)
     fwd_entry.update(fwd_train, **composite.kernel_info("composite_fwd"))
     bwd_entry["launches"] = train_bwd
@@ -1138,6 +1510,7 @@ def main():
     ablate_entry["max_abs_err_tools_workload"] = {
         m: errs[f"composite_ablate:{m}"] for m in ka.MODES}
     merge_variants(variants, errs["variants"], "_tools_workload")
+
     for name, res in variants.items():
         res["launches"] = launches["kernablate_real"][f"composite_fwd_variant:{name}"]
         check(all(res["identical"].values()), f"variant {name}: {res['identical']}")
@@ -1149,6 +1522,20 @@ def main():
         m: launches["kernablate"][f"composite_ablate:{m}"] for m in ka.MODES}
     ablate_entry["launches"] = sum(ablate_entry["launches_by_mode"].values())
     fori_entry["launches"] = launches["kernablate_real"]["composite_fwd_fori"]
+
+    # 11. slice 4's main path: fisheye lens calibration at full width
+    fisheye_toy_check(device)
+    t0 = time.perf_counter()
+    write_fisheye_gt(model, data, device)
+    print(f"wrote the fisheye GT in {time.perf_counter() - t0:.1f} s")
+    fish_model, fish_fwd, fish_bwd, _ = fisheye_train_path(data)
+    fwd_entry["launches_by_path"]["train_cli_fisheye"] = fish_fwd
+    bwd_entry["launches_by_path"]["train_cli_fisheye"] = fish_bwd
+    fwd_entry["launches_by_path"]["render_cli_fisheye"] = fisheye_restore_path(
+        fish_model, data)
+    fish_fwd_view, fish_bwd_view = fisheye_checks(fish_model, data, device)
+    fwd_entry.update(fish_fwd_view)
+    bwd_entry.update(fish_bwd_view)
 
     print(f"total {time.perf_counter() - t_all:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)

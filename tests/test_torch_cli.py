@@ -111,7 +111,7 @@ def test_cli_unported_paths_raise(tmp_path):
     _lookat_scene(root)
     from bags_tpu_torch.train.config import TrainConfig
 
-    for flag, slice_ in (("outside_rasterizer", "slice 4"), ("hybrid", "slice 5")):
+    for flag, slice_ in (("cubemap", "slice 4"), ("hybrid", "slice 5")):
         model = str(tmp_path / f"ckpt_{flag}")
         os.makedirs(model)
         open(os.path.join(model, "chkpnt100.npz"), "wb").close()

@@ -288,3 +288,29 @@ def test_fwd_variant_is_the_forward(cuda, variant, name, edge):
     assert kernablate.launches[variant] == before + 1
     kc, kt = composite.composite_fwd(*args)
     assert torch.equal(vc, kc) and torch.equal(vt, kt)
+
+
+def test_fisheye_step_on_card_matches_cpu(cuda):
+    """The toy fisheye step (`utils/testing.fisheye_toy`: the lens inverse,
+    the warp and crop, vignetting and the pupil shift) through both kernels
+    against the plain versions on the CPU from the same state and GT: loss
+    and warped image within 2e-5, every gradient within atol 1e-5, rtol
+    1e-3."""
+    from bags_tpu_torch.train.calibrated import fisheye_train_step
+    from bags_tpu_torch.utils.testing import fisheye_toy
+
+    out, gt = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        t = fisheye_toy(dev, gt)
+        gt = t["gt"].cpu()
+        out[dev.type] = fisheye_train_step(
+            t["state"], t["gt"], t["p_view"], 0, torch.zeros(3, device=dev),
+            t["setup"], RenderConfig(sh_degree=3), t["cfg"], t["schedules"],
+            True, True)
+    cpu, card = out["cpu"], out["cuda"]
+    assert abs(float(card.loss) - float(cpu.loss)) <= 2e-5
+    torch.testing.assert_close(card.image.cpu(), cpu.image, atol=2e-5, rtol=0)
+    assert set(card.grads) == set(cpu.grads)
+    for k, v in cpu.grads.items():
+        torch.testing.assert_close(card.grads[k].detach().cpu(), v, atol=1e-5,
+                                   rtol=1e-3, msg=k)
