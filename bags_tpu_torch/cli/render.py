@@ -62,13 +62,14 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def restore_trainer(model_path: str, source_path: str, iteration: int,
+def restore_trained(model_path: str, source_path: str, iteration: int,
                     device):
     """Rebuild the training-time Scene and trainer from `cfg.json` and
     restore `chkpnt{iteration}.npz` (the latest for -1) into its state (a
     fisheye model's lens is not pre-fitted first: the checkpoint holds it).
-    Returns (cfg, scene, trainer, it), or None without a checkpoint."""
-    from ..train.checkpoint import find_max_iteration, load_checkpoint
+    Returns (cfg, scene, state, it, trainer), `state` the TrainState, or
+    None without a checkpoint."""
+    from ..train.checkpoint import find_max_iteration
     from ..train.config import TrainConfig
     from .train import build_scene_and_trainer
 
@@ -86,10 +87,9 @@ def restore_trainer(model_path: str, source_path: str, iteration: int,
     cfg.calib.no_init_iresnet = True     # the checkpoint holds the lens
     scene, trainer = build_scene_and_trainer(cfg, device)
     trainer.close()
-    load_checkpoint(ck, trainer.state, with_optimizer=False)
-    trainer.active_sh_degree = trainer.max_sh_degree
+    trainer.load_checkpoint(ck, with_optimizer=False)
     print(f"restored the training state from {ck}")
-    return cfg, scene, trainer, it
+    return cfg, scene, trainer.base, it, trainer
 
 
 def optimize_test_poses(render_cam, cams, scene, iters: int):
@@ -130,17 +130,16 @@ def main(argv=None) -> dict:
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
-    trained = None if args.ply_only else restore_trainer(
+    trained = None if args.ply_only else restore_trained(
         args.model_path, args.source_path, args.iteration, device)
     fisheye_eval = None
     if trained is not None:
-        cfg_t, scene, trainer, it = trained
-        state = trainer.base
+        cfg_t, scene, state, it, trainer = trained
         g, alive, align = state.g, state.alive, state.align
         if cfg_t.calib.outside_rasterizer:
             from ..train.calibrated import (fisheye_eval_view,
                                             make_fisheye_eval_fn)
-            fisheye_eval = make_fisheye_eval_fn(trainer)
+            fisheye_eval = make_fisheye_eval_fn(trainer, args.max_instances)
         train_cams = state.cams                 # the OPTIMIZED train cameras
         cfg = RenderConfig(sh_degree=cfg_t.model.sh_degree,
                            max_instances=args.max_instances)
@@ -201,15 +200,15 @@ def main(argv=None) -> dict:
             vals = []
             for i in range(n):
                 if fisheye_eval is not None:
-                    img, gt_img = fisheye_eval_view(trainer, fisheye_eval,
-                                                    scene, split, cams, i)
+                    img, gt_img, n_dropped = fisheye_eval_view(
+                        trainer, fisheye_eval, scene, split, cams, i)
                 else:
                     out = render_cam(cams[i])
-                    if out.n_dropped:
-                        print(f"{split} view {i}: dropped {out.n_dropped} "
-                              f"instances past --max_instances")
                     img = torch.clamp(out.render, 0.0, 1.0)
-                    gt_img = gt_fn(i)
+                    gt_img, n_dropped = gt_fn(i), out.n_dropped
+                if n_dropped:
+                    print(f"{split} view {i}: dropped {n_dropped} "
+                          f"instances past --max_instances")
                 vals.append(float(psnr(img, gt_img)))
                 save_png(os.path.join(out_dir, "renders", f"{i:05d}.png"), img)
                 save_png(os.path.join(out_dir, "gt", f"{i:05d}.png"), gt_img)

@@ -13,11 +13,11 @@ resumes. Runs on `--device cuda` (the default) or `--device cpu`.
 `--outside_rasterizer` (`--preset fisheye`) trains the fisheye mode
 (`train/calibrated.py::CalibTrainer`): the render at the extended FoV
 warped through the iResNet lens net against the `fish/images` GT, the lens
-pre-fitted to the COLMAP coefficients of `fish/sparse/0` first
-(`--lens_prefit_iters`, 5,000 Adam steps as in the JAX package; its time
-is printed), and its evaluation warps through the lens. The cubemap, MCMC,
-hybrid, multi-GPU and batched-camera paths are later slices of the port
-and raise `NotImplementedError`.
+pre-fitted to the COLMAP coefficients of `fish/sparse/0` first (5,000
+Adam steps, as in the JAX package; its time is printed), and its
+evaluation warps through the lens. The cubemap, MCMC, hybrid, multi-GPU
+and batched-camera paths are later slices of the port and raise
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -133,10 +133,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wandb_mode", default="online")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
-    p.add_argument("--lens_prefit_iters", type=int, default=5000,
-                   help="Adam steps of the fisheye lens pre-fit to the COLMAP "
-                        "coefficients (the JAX package's 5000); fewer only "
-                        "to try the path quickly")
     return p
 
 
@@ -216,7 +212,7 @@ def check_ported(cfg) -> None:
                                   "ROADMAP.md Queue 1 #14, slice 5")
 
 
-def build_scene_and_trainer(cfg, device, lens_prefit_iters: int = 5000):
+def build_scene_and_trainer(cfg, device):
     """The Scene and Trainer exactly as training builds them from a
     (possibly cfg.json-restored) TrainConfig; the render CLI rebuilds its
     checkpoint template with it. `--outside_rasterizer` gives a
@@ -255,8 +251,7 @@ def build_scene_and_trainer(cfg, device, lens_prefit_iters: int = 5000):
         focal_x=info0.focal_x, focal_y=info0.focal_y,
         persp_wh=(scene.static.width, scene.static.height), fish_wh=fish_wh,
         source_path=cfg.model.source_path, rcfg=rcfg, seed=cfg.seed,
-        fish_images=scene.fish_image if info0.fish_image_path else None,
-        prefit_iters=lens_prefit_iters)
+        fish_images=scene.fish_image if info0.fish_image_path else None)
 
 
 def main(argv=None) -> dict:
@@ -282,7 +277,6 @@ def main(argv=None) -> dict:
     from ..eval.pose_eval import align_and_pose_error
     from ..model.gaussians import save_ply
     from ..raster.render import RenderConfig, render
-    from ..train.checkpoint import load_checkpoint, save_checkpoint
     from ..train.losses import ssim
     from ..utils.device import resolve_device
     from ..utils.logging import MetricsLogger
@@ -293,8 +287,7 @@ def main(argv=None) -> dict:
     with open(os.path.join(args.model_path, "cfg.json"), "w") as f:
         f.write(cfg.to_json())
 
-    scene, trainer = build_scene_and_trainer(cfg, device,
-                                             args.lens_prefit_iters)
+    scene, trainer = build_scene_and_trainer(cfg, device)
     print(f"scene: {scene.n_train} train / {scene.n_test} test cameras, "
           f"extent {scene.cameras_extent:.3f}, capacity "
           f"{trainer.base.capacity}, alive {int(trainer.base.alive.sum())}, "
@@ -309,7 +302,7 @@ def main(argv=None) -> dict:
               f"{st.fovy:.4f}, control grid {st.grid_hw}, flow {st.flow_hw}, "
               f"fisheye GT {st.fish_hw}")
     if args.start_checkpoint:
-        load_checkpoint(args.start_checkpoint, trainer.state)
+        trainer.load_checkpoint(args.start_checkpoint)
         print(f"resumed from {args.start_checkpoint} at step "
               f"{trainer.base.step}")
 
@@ -322,8 +315,9 @@ def main(argv=None) -> dict:
     def eval_view(split, cams, i):
         """(image, gt) of view i of a split, clipped / masked for metrics."""
         if fisheye_eval is not None:
-            return fisheye_eval_view(trainer, fisheye_eval, scene, split,
-                                     cams, i)
+            img, gt, _ = fisheye_eval_view(trainer, fisheye_eval, scene,
+                                           split, cams, i)
+            return img, gt
         st = trainer.base
         g = st.g
         out = render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
@@ -384,8 +378,8 @@ def main(argv=None) -> dict:
             save_ply(os.path.join(ply_dir, "point_cloud.ply"), trainer.base.g,
                      trainer.base.alive)
         if it in cfg.checkpoint_iterations:
-            save_checkpoint(os.path.join(args.model_path, f"chkpnt{it}.npz"),
-                            state)
+            trainer.save_checkpoint(
+                os.path.join(args.model_path, f"chkpnt{it}.npz"))
         last[0] = time.perf_counter()
 
     try:

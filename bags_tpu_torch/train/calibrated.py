@@ -15,9 +15,22 @@ perspective size, and the camera FoVs the trainer optimises are reset to
 those extended values. The lens, vignetting and shift groups keep Adam
 moments (`optim.AdamMoments`, eps `ADAM_EPS`) with the learning rate
 applied outside, from MultiStepLR schedules of the global step: lens
-x0.5 at 7000, vignetting x10 at 1000, shift x0.1 at 30000. The cubemap
-net is kept in the state (untrained here) so that a JAX checkpoint's
-leaves map one to one; the cubemap mode itself is ROADMAP.md Queue 1 #10.
+x0.5 at 7000, vignetting x10 at 1000, shift x0.1 at 30000. The moments
+are optax's, in its order of rounding, not `torch.optim.Adam`'s: the
+vignetting's first step (a_k 0.01, lr 0.01) lands a_k on 0 within an ulp,
+and the sign of that ulp decides whether the mask's clamp passes any
+gradient afterwards. The cubemap net is kept in the state (untrained
+here) so that a JAX checkpoint's leaves map one to one; the cubemap mode
+itself is ROADMAP.md Queue 1 #10.
+
+Checkpoints (`save_calib_checkpoint`, `load_calib_checkpoint`) hold the
+base state under `.base` and the lens, cubemap, vignetting and shift
+leaves and their Adam states under the JAX package's names
+(`.lens.weights[0][1]`, `.lens.u_vecs[0][1]`, `.lens_opt.count`,
+`.lens_opt.mu.weights[0][1]`, `.vig.a_k`, `.shift`, `.shift_opt.nu`, ...),
+so either package's checkpoint restores. The power-iteration vectors
+`u_vecs` are constants, never trained: their moments are written as zeros
+(what the JAX package holds for them) and not read.
 """
 
 from __future__ import annotations
@@ -35,12 +48,17 @@ from ..calib.vignetting import VignettingParams, vignetting_mask
 from ..core.camera import CameraParams, CameraStatic
 from ..model.densify import update_stats
 from ..raster.render import RenderConfig, render
+from .checkpoint import PREFIX, copy_leaves, load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .loop import StepMetrics, Trainer, TrainState
 from .losses import photometric_loss
 from .optim import (CAMERA_FIELDS, AdamMoments, adam_moments_init,
                     adam_moments_step, camera_lrs, multistep_schedule,
                     row_adam_update)
+
+# Adam steps of the lens net's pre-fit to the COLMAP coefficients (the JAX
+# package's count, `bags_tpu/train/calibrated.py:629`)
+LENS_PREFIT_ITERS = 5000
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +139,16 @@ class CalibState:
     shift: torch.Tensor
     shift_opt: AdamMoments
 
+    def groups(self) -> Dict[str, Tuple[Dict[str, torch.Tensor],
+                                        AdamMoments]]:
+        """Each Adam group by its JAX name: (its tensors by their JAX
+        paths, its moments)."""
+        return {".lens_opt": (self.lens.named_tensors(True), self.lens_opt),
+                ".cubemap_opt": (self.cubemap_net.named_tensors(True),
+                                 self.cubemap_opt),
+                ".vig_opt": (self.vig.named_tensors(), self.vig_opt),
+                ".shift_opt": ({"": self.shift}, self.shift_opt)}
+
 
 def calib_schedules(cfg: TrainConfig) -> Dict[str, Callable[[int], float]]:
     """Each group's learning rate at a global step (MultiStepLR)."""
@@ -151,6 +179,55 @@ def init_calib_state(base: TrainState, cfg: TrainConfig, seed: int = 0
         vig=vig, vig_opt=adam_moments_init(vig.named_tensors()),
         shift=shift, shift_opt=adam_moments_init({"": shift}))
     return state, calib_schedules(cfg)
+
+
+def _calib_leaves(cs: CalibState) -> Dict[str, torch.Tensor]:
+    """The lens, cubemap, vignetting and shift leaves by their JAX names."""
+    out = {".lens" + k: t for k, t in cs.lens.named_tensors().items()}
+    out.update({".cubemap_net" + k: t
+                for k, t in cs.cubemap_net.named_tensors().items()})
+    out.update({".vig" + k: t for k, t in cs.vig.named_tensors().items()})
+    out[".shift"] = cs.shift
+    return out
+
+
+def save_calib_checkpoint(path: str, cs: CalibState) -> None:
+    """Write `cs`: the base state under `.base`, then the calibration
+    leaves and each group's step count and moments (the u_vecs' as
+    zeros) under their JAX names."""
+    arrays = {k: t.detach().cpu().numpy() for k, t in _calib_leaves(cs).items()}
+    for name, (named, st) in cs.groups().items():
+        arrays[name + ".count"] = np.asarray(st.count, np.int32)
+        for k in named:
+            arrays[f"{name}.mu{k}"] = st.mu[k].cpu().numpy()
+            arrays[f"{name}.nu{k}"] = st.nu[k].cpu().numpy()
+    for net, name in ((cs.lens, ".lens_opt"), (cs.cubemap_net, ".cubemap_opt")):
+        for k, t in net.named_tensors().items():
+            if k.startswith(".u_vecs"):
+                for m in ("mu", "nu"):
+                    arrays[f"{name}.{m}{k}"] = np.zeros(tuple(t.shape),
+                                                        np.float32)
+    save_checkpoint(path, cs.base, pre=".base",
+                    extra={PREFIX + k: v for k, v in arrays.items()})
+
+
+@torch.no_grad()
+def load_calib_checkpoint(path: str, cs: CalibState,
+                          with_optimizer: bool = True) -> CalibState:
+    """Restore `cs` in place from either package's checkpoint and return
+    it: the base state as `load_checkpoint` restores it (under `.base`),
+    and, `with_optimizer` or not, the calibration leaves and their Adam
+    states, which carry the JAX names."""
+    load_checkpoint(path, cs.base, with_optimizer, pre=".base")
+    data = np.load(path)
+    leaves = _calib_leaves(cs)
+    for name, (named, st) in cs.groups().items():
+        leaves.update({f"{name}.mu{k}": t for k, t in st.mu.items()})
+        leaves.update({f"{name}.nu{k}": t for k, t in st.nu.items()})
+    copy_leaves(data, path, leaves)
+    for name, (_, st) in cs.groups().items():
+        st.count = int(data[PREFIX + name + ".count"])
+    return cs
 
 
 # ---------------------------------------------------------------------------
@@ -296,8 +373,8 @@ class CalibTrainer(Trainer):
     Builds the extended-FoV setup and control points, resets the camera
     FoVs to the extended ones, wraps the TrainState in a CalibState,
     pre-fits the lens net to the COLMAP coefficients (`--opt_distortion`
-    without `--no_init_iresnet`; `prefit_iters` Adam steps, the time in
-    `prefit_s`), and drives `fisheye_train_step` inside the base trainer's
+    without `--no_init_iresnet`; `LENS_PREFIT_ITERS` Adam steps, the time
+    in `prefit_s`), and drives `fisheye_train_step` inside the base trainer's
     cadences. The lens steps while iresnet_opt_duration[0] <= it <
     iresnet_opt_duration[1] and it >= start_opt_lens; vignetting after
     start_vignetting. The step's GT is the fisheye image: `fish_images`
@@ -308,7 +385,7 @@ class CalibTrainer(Trainer):
                  scene_extent: float, gt_images, focal_x: float,
                  focal_y: float, persp_wh, fish_wh=None, source_path: str = "",
                  bg=None, rcfg: Optional[RenderConfig] = None, seed: int = 0,
-                 fish_images=None, prefit_iters: int = 5000):
+                 fish_images=None):
         calib = cfg.calib
         if calib.cubemap:
             raise NotImplementedError(
@@ -339,15 +416,25 @@ class CalibTrainer(Trainer):
             K = np.array([[focal_x, 0, fish_wh[0] / 2],
                           [0, focal_y, fish_wh[1] / 2], [0, 0, 1.0]])
             print(f"pre-fitting lens net to coeff {coeff} "
-                  f"({prefit_iters} Adam steps) ...", flush=True)
+                  f"({LENS_PREFIT_ITERS} Adam steps) ...", flush=True)
             t0 = time.perf_counter()
             dist_lib.init_iresnet_from_colmap(self.state.lens, K, fish_wh[0],
                                               fish_wh[1], coeff,
-                                              iters=prefit_iters)
+                                              iters=LENS_PREFIT_ITERS)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             self.prefit_s = time.perf_counter() - t0
             print(f"lens pre-fit: {self.prefit_s:.2f} s", flush=True)
+
+    @property
+    def base(self) -> TrainState:
+        return self.state.base
+
+    def save_checkpoint(self, path: str) -> None:
+        save_calib_checkpoint(path, self.state)
+
+    def load_checkpoint(self, path: str, with_optimizer: bool = True) -> None:
+        load_calib_checkpoint(path, self.state, with_optimizer)
 
     def lens_window(self, it: int) -> Tuple[bool, bool]:
         """(opt_lens, use_vignetting) at iteration `it`."""
@@ -375,7 +462,8 @@ def fisheye_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
     """View i of a split as evaluation and the render CLI take it: camera i
     of `cams` at the extended FoV, through `eval_one` (of
     `make_fisheye_eval_fn`) against its fisheye GT, or its perspective
-    image where the view has no fisheye pair. Returns (image, gt)."""
+    image where the view has no fisheye pair. Returns (image, gt,
+    instances dropped)."""
     test = split == "test"
     infos = scene.test_infos if test else scene.train_infos
     gt_fn = ((scene.test_fish_image if test else scene.fish_image)
@@ -387,13 +475,16 @@ def fisheye_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
     return eval_one(trainer.state, cam, gt_fn(i))
 
 
-def make_fisheye_eval_fn(trainer: CalibTrainer):
+def make_fisheye_eval_fn(trainer: CalibTrainer,
+                         max_instances: Optional[int] = None):
     """Held-out evaluation of the fisheye mode: render at the extended FoV
-    (no background, no alignment, the full SH degree), warp through the
-    current lens field and compare with the fisheye GT. Returns
-    eval_one(state, cam, fish_gt) -> (image, gt), both clipped / masked."""
+    (no background, no alignment, the full SH degree, at most
+    `max_instances` instances), warp through the current lens field and
+    compare with the fisheye GT. Returns eval_one(state, cam, fish_gt) ->
+    (image, gt, instances dropped), image and gt clipped / masked."""
     setup = trainer.setup
-    rcfg = dataclasses.replace(trainer.rcfg, sh_degree=trainer.max_sh_degree)
+    rcfg = dataclasses.replace(trainer.rcfg, sh_degree=trainer.max_sh_degree,
+                               max_instances=max_instances)
     static = setup.render_static
     apply2gt = trainer.cfg.calib.apply2gt
 
@@ -408,10 +499,11 @@ def make_fisheye_eval_fn(trainer: CalibTrainer):
                 state.lens, trainer.p_view, setup.grid_hw, out.render,
                 _proj_scale(cam), setup.flow_hw, final_hw=setup.fish_hw,
                 apply2gt=False)
-            return torch.clamp(warped, 0.0, 1.0), fish_gt * mask
+            return torch.clamp(warped, 0.0, 1.0), fish_gt * mask, out.n_dropped
         gt_warped, mask, _ = dist_lib.apply_distortion(
             state.lens, trainer.p_view, setup.grid_hw, fish_gt,
             _proj_scale(cam), setup.flow_hw, apply2gt=True)
-        return torch.clamp(out.render * mask, 0.0, 1.0), gt_warped
+        return (torch.clamp(out.render * mask, 0.0, 1.0), gt_warped,
+                out.n_dropped)
 
     return eval_one

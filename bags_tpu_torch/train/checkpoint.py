@@ -9,14 +9,8 @@ the other's model, cameras and statistics. The optimizer states and the
 split-noise generator are the port's own (`"torch|..."` names); the JAX
 package's optimizer leaves are ignored on load.
 
-A calibrated state (`train/calibrated.py::CalibState`) puts the base
-leaves under `.base` (`.base.g.xyz`, ...) and adds the lens, cubemap,
-vignetting and shift leaves and their Adam moments under the JAX names
-(`.lens.weights[0][1]`, `.lens.u_vecs[0][1]`, `.lens_opt.count`,
-`.lens_opt.mu.weights[0][1]`, `.vig.a_k`, `.shift`, `.shift_opt.nu`, ...),
-which are restored from either package's checkpoint. The power-iteration
-vectors `u_vecs` are constants, never trained: their moments are written
-as zeros (what the JAX package holds for them) and not read.
+A calibrated state (`train/calibrated.py`) writes its base state under
+`.base` (`.base.g.xyz`, ...) and its own leaves beside it.
 """
 
 from __future__ import annotations
@@ -25,6 +19,7 @@ import dataclasses
 import glob
 import os
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -74,53 +69,16 @@ def _optimizer_leaves(state: TrainState) -> dict:
     return out
 
 
-def _calib_leaves(cs) -> dict:
-    """A CalibState's own leaves by their JAX names (u_vecs' moments
-    excluded), and {the name of each group's step count: its moments}."""
-    out = {".lens" + k: t for k, t in cs.lens.named_tensors().items()}
-    out.update({".cubemap_net" + k: t
-                for k, t in cs.cubemap_net.named_tensors().items()})
-    out.update({".vig" + k: t for k, t in cs.vig.named_tensors().items()})
-    out[".shift"] = cs.shift
-    moments = {}
-    for opt, named, st in (
-            (".lens_opt", cs.lens.named_tensors(True), cs.lens_opt),
-            (".cubemap_opt", cs.cubemap_net.named_tensors(True), cs.cubemap_opt),
-            (".vig_opt", cs.vig.named_tensors(), cs.vig_opt),
-            (".shift_opt", {"": cs.shift}, cs.shift_opt)):
-        for k in named:
-            out[f"{opt}.mu{k}"] = st.mu[k]
-            out[f"{opt}.nu{k}"] = st.nu[k]
-        moments[f"{opt}.count"] = st
-    return out, moments
-
-
-def _u_moment_zeros(cs) -> dict:
-    """The u_vecs' moment leaves the JAX package holds, as zero arrays."""
-    out = {}
-    for net, opt in ((cs.lens, ".lens_opt"), (cs.cubemap_net, ".cubemap_opt")):
-        for k, t in net.named_tensors().items():
-            if k.startswith(".u_vecs"):
-                for m in ("mu", "nu"):
-                    out[f"{opt}.{m}{k}"] = np.zeros(tuple(t.shape), np.float32)
-    return out
-
-
-def save_checkpoint(path: str, state) -> None:
-    """Write a TrainState or a CalibState (its base under `.base`)."""
-    base = getattr(state, "base", None)
-    pre = PREFIX + (".base" if base is not None else "")
-    base = base if base is not None else state
-    arrays = {pre + k: _host(v) for k, v in _model_leaves(base).items()}
-    arrays[pre + ".step"] = np.asarray(base.step, np.int32)
+def save_checkpoint(path: str, state: TrainState, pre: str = "",
+                    extra: Optional[dict] = None) -> None:
+    """Write `state`, its JAX-named leaves under `pre` (a calibrated state
+    writes its base under ".base") and the arrays of `extra` beside them."""
+    arrays = {PREFIX + pre + k: _host(v)
+              for k, v in _model_leaves(state).items()}
+    arrays[PREFIX + pre + ".step"] = np.asarray(state.step, np.int32)
     arrays.update({PORT + k: _host(v)
-                   for k, v in _optimizer_leaves(base).items()})
-    if base is not state:
-        leaves, moments = _calib_leaves(state)
-        arrays.update({PREFIX + k: _host(v) for k, v in leaves.items()})
-        arrays.update({PREFIX + k: np.asarray(st.count, np.int32)
-                       for k, st in moments.items()})
-        arrays.update({PREFIX + k: v for k, v in _u_moment_zeros(state).items()})
+                   for k, v in _optimizer_leaves(state).items()})
+    arrays.update(extra or {})
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
 
@@ -145,7 +103,9 @@ def _restore_adam(prefix: str, opt: torch.optim.Optimizer, names, data,
             opt.state[p] = st
 
 
-def _copy_leaves(data, path: str, leaves: dict) -> None:
+def copy_leaves(data, path: str, leaves: dict) -> None:
+    """Copy the arrays `"v2|" + name` of `data` into the tensors of
+    `leaves` ({name: tensor}); every one must be there, in its shape."""
     missing = [n for n in leaves if PREFIX + n not in data.files]
     if missing:
         raise ValueError(f"checkpoint {path} is missing leaves {missing[:8]}")
@@ -158,28 +118,19 @@ def _copy_leaves(data, path: str, leaves: dict) -> None:
 
 
 @torch.no_grad()
-def load_checkpoint(path: str, state, with_optimizer: bool = True):
-    """Restore `state` (a TrainState or a CalibState) in place from `path`
-    and return it. The model, camera, alignment and statistics leaves, and
-    a CalibState's leaves with their moments, must all be present under
-    their JAX names, with the template's shapes; either package's
-    checkpoint has them. `with_optimizer=False` (for rendering) restores
-    only those, so a checkpoint the JAX package wrote loads too; with it,
-    the port's own optimizer leaves are restored as well."""
+def load_checkpoint(path: str, state: TrainState,
+                    with_optimizer: bool = True, pre: str = "") -> TrainState:
+    """Restore `state` in place from `path` and return it. The model,
+    camera, alignment and statistics leaves must all be present under their
+    JAX names (under `pre`), with the template's shapes.
+    `with_optimizer=False` (for rendering) restores only those, so a
+    checkpoint the JAX package wrote loads too."""
     data = np.load(path)
-    top = state
-    calib = state if hasattr(state, "base") else None
-    state = getattr(state, "base", state)
-    pre = ".base" if calib is not None else ""
-    _copy_leaves(data, path, {pre + k: v for k, v in _model_leaves(state).items()})
+    copy_leaves(data, path, {pre + k: v
+                             for k, v in _model_leaves(state).items()})
     state.step = int(data[PREFIX + pre + ".step"])
-    if calib is not None:
-        leaves, moments = _calib_leaves(calib)
-        _copy_leaves(data, path, leaves)
-        for k, st in moments.items():
-            st.count = int(data[PREFIX + k])
     if not with_optimizer:
-        return top
+        return state
     if not any(f.startswith(PORT) for f in data.files):
         raise ValueError(f"checkpoint {path} holds no optimizer state of "
                          "this package (written by the JAX package?)")
@@ -191,7 +142,7 @@ def load_checkpoint(path: str, state, with_optimizer: bool = True):
         state.cam_opt.nu[f].copy_(torch.as_tensor(data[f"{PORT}cam_opt.nu.{f}"]))
     state.cam_opt.count.copy_(torch.as_tensor(data[f"{PORT}cam_opt.count"]))
     state.gen.set_state(torch.as_tensor(data[f"{PORT}gen"]))
-    return top
+    return state
 
 
 def find_max_iteration(folder: str, pattern: str = r"iteration_(\d+)") -> int:

@@ -191,7 +191,17 @@ class Trainer:
     @property
     def base(self) -> TrainState:
         """The TrainState (a calibrated trainer's state wraps it)."""
-        return getattr(self.state, "base", self.state)
+        return self.state
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write the state to `path` (`checkpoint.save_checkpoint`)."""
+        from .checkpoint import save_checkpoint
+        save_checkpoint(path, self.state)
+
+    def load_checkpoint(self, path: str, with_optimizer: bool = True) -> None:
+        """Restore the state from `path` (`checkpoint.load_checkpoint`)."""
+        from .checkpoint import load_checkpoint
+        load_checkpoint(path, self.state, with_optimizer)
 
     def _refill_camera_stack(self) -> None:
         if not self._camera_stack:

@@ -1361,7 +1361,7 @@ def fisheye_checks(model, data, device):
                                                 fwd_ops, pair_counts, timed)
     from bags_tpu_torch.utils.testing import KNOWN_LENS
 
-    _, scene, trainer, _ = render_cli.restore_trainer(model, data, -1, device)
+    _, scene, _, _, trainer = render_cli.restore_trained(model, data, -1, device)
     setup, p_view, lens = trainer.setup, trainer.p_view, trainer.state.lens
     res = inverse_residual(lens, p_view)
     proj = [1 / np.tan(setup.fovx / 2), 1 / np.tan(setup.fovy / 2)]
@@ -1488,9 +1488,8 @@ def main():
     fwd_entry["launches_by_path"]["train_cli"] = train_fwd
 
     # 7. the backward kernel at full width on the trained model
-    cfg, scene, trainer, _ = render_cli.restore_trainer(train_model, data, -1, device)
-    state = trainer.state
-    del trainer
+    # the trainer (the fifth value) is not kept: `del state` below frees the model
+    cfg, scene, state = render_cli.restore_trained(train_model, data, -1, device)[:3]
     fwd_train, bwd_entry = backward_full_width(state, scene, device)
     fwd_entry.update(fwd_train, **composite.kernel_info("composite_fwd"))
     bwd_entry["launches"] = train_bwd

@@ -12,7 +12,7 @@ import torch
 
 import _fisheye_toy as toy_lib
 from bags_tpu.train.checkpoint import save_checkpoint as jsave
-from bags_tpu_torch.train import checkpoint as tck
+from bags_tpu_torch.train import calibrated as tcal
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IDX = 1
@@ -71,12 +71,12 @@ def test_checkpoint_round_trip(toy, one_step, tmp_path):
     _, _, _, port, _ = one_step
     cs = port[0]
     path = str(tmp_path / "chkpnt1.npz")
-    tck.save_checkpoint(path, cs)
+    tcal.save_calib_checkpoint(path, cs)
     data = np.load(path)
     assert not data["v2|.lens_opt.mu.u_vecs[0][0]"].any()
     assert int(data["v2|.lens_opt.count"]) == 1
     fresh = toy_lib.port_state(toy)[0]
-    tck.load_checkpoint(path, fresh)
+    tcal.load_calib_checkpoint(path, fresh)
     for a, b in ((fresh.base.g.xyz, cs.base.g.xyz), (fresh.shift, cs.shift),
                  (fresh.vig.beta_k, cs.vig.beta_k), (fresh.base.cams.dq, cs.base.cams.dq)):
         assert torch.equal(a, b)
@@ -97,7 +97,7 @@ def test_jax_checkpoint_calib_leaves_load(toy, one_step, tmp_path):
     path = str(tmp_path / "jax.npz")
     jsave(path, js)
     cs = toy_lib.port_state(toy)[0]
-    tck.load_checkpoint(path, cs, with_optimizer=False)
+    tcal.load_calib_checkpoint(path, cs, with_optimizer=False)
     toy_lib.assert_same_state(cs, js, atol=0, rtol=0)
     jmu = toy_lib.lens_np(js.lens_opt.mu)
     for f in ("weights", "biases"):

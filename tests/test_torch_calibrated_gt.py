@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import _fisheye_toy as toy_lib
+from bags_tpu_torch.train import calibrated as tcal
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 IDX = 2
@@ -137,7 +138,6 @@ def fish_dataset(tmp_path_factory):
 
     from bags_tpu_torch.core.sh import sh_dc_to_rgb
     from bags_tpu_torch.raster.render import RenderConfig, render
-    from bags_tpu_torch.train import calibrated as tcal
     from bags_tpu_torch.utils import testing
 
     root = str(tmp_path_factory.mktemp("fish_scene"))
@@ -177,11 +177,13 @@ def fisheye_model(fish_dataset, tmp_path_factory):
     from bags_tpu_torch.cli import train as train_cli
 
     model = str(tmp_path_factory.mktemp("fish_model"))
-    summary = train_cli.main([
-        "-s", fish_dataset, "-m", model, "--preset", "fisheye", "--init_type",
-        "sfm", "--sh_degree", "0", "--iterations", "6", "--test_iterations", "6",
-        "--save_iterations", "6", "--checkpoint_iterations", "6",
-        "--lens_prefit_iters", "2", "--device", "cpu", "--quiet"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcal, "LENS_PREFIT_ITERS", 2)   # 5,000 steps of the 5x512 net: long on a CPU
+        summary = train_cli.main([
+            "-s", fish_dataset, "-m", model, "--preset", "fisheye", "--init_type",
+            "sfm", "--sh_degree", "0", "--iterations", "6", "--test_iterations",
+            "6", "--save_iterations", "6", "--checkpoint_iterations", "6",
+            "--device", "cpu", "--quiet"])
     return model, summary
 
 

@@ -134,8 +134,7 @@ def test_jax_checkpoint_restores_in_port_render_cli(tmp_path, dataset, capsys):
     with open(os.path.join(model, "cfg.json"), "w") as f:
         f.write(cfg.to_json())
 
-    _, _, trainer, it = render_cli.restore_trainer(model, dataset, -1, "cpu")
-    tstate = trainer.state
+    _, _, tstate, it, _ = render_cli.restore_trained(model, dataset, -1, "cpu")
     assert it == 7
     for f in G_FIELDS:
         np.testing.assert_array_equal(getattr(tstate.g, f).detach().numpy(),
@@ -213,8 +212,7 @@ def test_render_cli_restores_the_trained_cameras(trained, dataset):
     model, _ = trained
     summary = render_cli.main(["-m", model, "-s", dataset, "--device", "cpu"])
     assert [len(v["psnr"]) for v in summary.values()] == [4, 4]
-    _, scene, trainer, _ = render_cli.restore_trainer(model, dataset, -1, "cpu")
-    state = trainer.state
+    _, scene, state, _, _ = render_cli.restore_trained(model, dataset, -1, "cpu")
     assert float((state.cams.dq - scene.train_cams.dq).abs().max()) > 1e-4
     saved = _png(os.path.join(summary["train"]["dir"], "renders", "00001.png"))
     g = state.g
