@@ -15,9 +15,10 @@
     datasets and the recovered-flow error (`analytic_inverse_flow`,
     `flow_error_px`).
 
-The banded warp (`apply_distortion_banded`) is a TPU workaround and is not
-ported; the cubemap pre-fit (`init_cubemap_net`) comes with the cubemap
-mode.
+The cubemap net's pre-fit (`init_cubemap_net`) fits the same way on
+circular samples of the theta polynomial (`cubemap_fit_points`). The
+banded warp (`apply_distortion_banded`) is a TPU workaround and is not
+ported.
 """
 
 from __future__ import annotations
@@ -208,6 +209,38 @@ def init_iresnet_from_colmap(params: IResNetParams, K: np.ndarray,
     inputs, targets = colmap_fit_points(K, fish_w, fish_h, coeff,
                                         params.weights[0][0].device)
     return fit_iresnet_to_targets(params, inputs, targets, iters, lr)
+
+
+def cubemap_fit_points(coeff, device=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cubemap pre-fit's inputs and targets: 1,600 radii (0.05 to 80)
+    x 100 angles of ideal points, distorted by the theta polynomial of
+    `coeff` and rescaled by r_n / r_d (the inputs), and the ideal points
+    (the targets); 160,000 float32 points each, built in numpy as the JAX
+    package builds them."""
+    radii = np.arange(0.05, 80.0 + 1e-7, 0.05)
+    angles = np.linspace(0, 2 * np.pi, 100)
+    R, Th = np.meshgrid(radii, angles, indexing="ij")
+    pts_n = np.stack([(R * np.cos(Th)).ravel(), (R * np.sin(Th)).ravel()],
+                     axis=-1).astype(np.float32)
+    r_n = np.sqrt((pts_n ** 2).sum(-1))
+    at = np.arctan(r_n)
+    r_d = at + coeff[0] * at ** 3 + coeff[1] * at ** 5 \
+        + coeff[2] * at ** 7 + coeff[3] * at ** 9
+    pts_d = pts_n * (r_d / (r_n + 1e-5))[:, None]
+    scale = r_n / (r_d + 1e-5)
+    return (torch.as_tensor(pts_d * scale[:, None], dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(pts_n, device=device))
+
+
+def init_cubemap_net(params: IResNetParams, coeff,
+                     iters: int = 100) -> IResNetParams:
+    """Pre-fit the cubemap residual net to `coeff` on `cubemap_fit_points`
+    (forward(inputs) ~= targets, `iters` Adam steps at lr 1e-4); in place,
+    returns `params`."""
+    inputs, targets = cubemap_fit_points(coeff, params.weights[0][0].device)
+    return fit_iresnet_to_targets(params, inputs, targets, iters, 1e-4)
 
 
 def compute_flow(lens_params: IResNetParams, p_view: torch.Tensor, grid_hw,

@@ -13,7 +13,9 @@ on `--device cuda` (the default) or `--device cpu`. A fisheye model
 (`--outside_rasterizer`) is restored with its lens net, vignetting and
 shift, and each view is rendered at the extended FoV and warped through
 the lens against the fisheye GT (`fish/images`), as training evaluates.
-The cubemap and hybrid models of later slices raise `NotImplementedError`.
+A cubemap model (`--cubemap`) is restored with its cubemap net and renders
+plain perspective views of its Gaussians, as the JAX render CLI does. The
+hybrid models of a later slice raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -66,7 +68,8 @@ def restore_trained(model_path: str, source_path: str, iteration: int,
                     device):
     """Rebuild the training-time Scene and trainer from `cfg.json` and
     restore `chkpnt{iteration}.npz` (the latest for -1) into its state (a
-    fisheye model's lens is not pre-fitted first: the checkpoint holds it).
+    fisheye model's lens or a cubemap model's net is not pre-fitted first:
+    the checkpoint holds it).
     Returns (cfg, scene, state, it, trainer), `state` the TrainState, or
     None without a checkpoint."""
     from ..train.checkpoint import find_max_iteration
@@ -136,7 +139,7 @@ def main(argv=None) -> dict:
     if trained is not None:
         cfg_t, scene, state, it, trainer = trained
         g, alive, align = state.g, state.alive, state.align
-        if cfg_t.calib.outside_rasterizer:
+        if cfg_t.calib.outside_rasterizer and not cfg_t.calib.cubemap:
             from ..train.calibrated import (fisheye_eval_view,
                                             make_fisheye_eval_fn)
             fisheye_eval = make_fisheye_eval_fn(trainer, args.max_instances)

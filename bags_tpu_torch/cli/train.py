@@ -15,8 +15,13 @@ resumes. Runs on `--device cuda` (the default) or `--device cpu`.
 warped through the iResNet lens net against the `fish/images` GT, the lens
 pre-fitted to the COLMAP coefficients of `fish/sparse/0` first (5,000
 Adam steps, as in the JAX package; its time is printed), and its
-evaluation warps through the lens. The cubemap, MCMC, hybrid, multi-GPU
-and batched-camera paths are later slices of the port and raise
+evaluation warps through the lens. `--cubemap` (`--preset cubemap`) trains
+the cubemap mode for fields of view past 180 degrees: five renders a step
+(the camera and its +-90 degree sub-cameras, sorted by distance) warped
+through the cubemap net against the circular-masked `images/` GT, the net
+pre-fitted first unless `--no_init_iresnet` (the preset sets it); its
+evaluation stitches the five faces. The MCMC, hybrid, multi-GPU and
+batched-camera paths are later slices of the port and raise
 `NotImplementedError`.
 """
 
@@ -33,7 +38,6 @@ import torch
 
 # Switches of paths this slice has not ported -> their ROADMAP.md item.
 UNPORTED = {
-    "cubemap": "Queue 1 #10, slice 4 (lens calibration)",
     "mcmc": "Queue 1 #12, slice 5 (MCMC)",
     "hybrid": "Queue 1 #12, slice 5 (hybrid specular)",
     "gui": "Queue 1 #13, slice 5 (network viewer)",
@@ -199,8 +203,7 @@ def _refuse(name: str):
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a configuration that takes a path this
     slice of the port does not have, naming its ROADMAP.md item."""
-    flags = {"cubemap": cfg.calib.cubemap, "mcmc": cfg.mcmc,
-             "hybrid": cfg.calib.hybrid}
+    flags = {"mcmc": cfg.mcmc, "hybrid": cfg.calib.hybrid}
     for name, value in flags.items():
         if value:
             _refuse(name)
@@ -215,9 +218,9 @@ def check_ported(cfg) -> None:
 def build_scene_and_trainer(cfg, device):
     """The Scene and Trainer exactly as training builds them from a
     (possibly cfg.json-restored) TrainConfig; the render CLI rebuilds its
-    checkpoint template with it. `--outside_rasterizer` gives a
-    CalibTrainer, its fisheye size read from the first training view's
-    `fish/images` pair."""
+    checkpoint template with it. `--outside_rasterizer` or `--cubemap`
+    gives a CalibTrainer, a fisheye one's fisheye size read from the first
+    training view's `fish/images` pair."""
     from ..data.scene import Scene
     from ..raster.render import RenderConfig
     from ..train.calibrated import CalibTrainer
@@ -234,7 +237,7 @@ def build_scene_and_trainer(cfg, device):
                              else cfg.model.init_type),
                   num_pts=cfg.model.num_init_points, device=device)
     rcfg = RenderConfig(sh_degree=cfg.model.sh_degree)
-    if not cfg.calib.outside_rasterizer:
+    if not (cfg.calib.outside_rasterizer or cfg.calib.cubemap):
         return scene, Trainer(
             scene.gaussians, scene.alive, scene.train_cams, scene.static, cfg,
             scene_extent=scene.cameras_extent, gt_images=scene.train_image,
@@ -260,7 +263,7 @@ def main(argv=None) -> dict:
     iteration, "densify": [(it, cloned, split, pruned, alive_before,
     alive_after)], "eval": the evaluation lines, "eval_renders": the views
     evaluation rendered, "model_path": ..., "lens_prefit_s": the fisheye
-    lens pre-fit's seconds or None}."""
+    lens pre-fit's or the cubemap net's pre-fit's seconds, or None}."""
     from ..train.presets import apply_preset
 
     argv = apply_preset(list(argv if argv is not None else sys.argv[1:]))
@@ -292,8 +295,15 @@ def main(argv=None) -> dict:
           f"extent {scene.cameras_extent:.3f}, capacity "
           f"{trainer.base.capacity}, alive {int(trainer.base.alive.sum())}, "
           f"size {scene.static.width}x{scene.static.height}, device {device}")
-    fisheye_eval = None
-    if cfg.calib.outside_rasterizer:
+    fisheye_eval = cubemap_eval = None
+    if cfg.calib.cubemap:
+        from ..train.calibrated import cubemap_eval_view, make_cubemap_eval_fn
+        cubemap_eval = make_cubemap_eval_fn(trainer)
+        print(f"cubemap: five faces at {scene.static.width}x"
+              f"{scene.static.height}, focal {trainer.focal}, mask radius "
+              f"{cfg.calib.mask_radius}, control grid every "
+              f"{trainer.setup.scale} pixels")
+    elif cfg.calib.outside_rasterizer:
         from ..train.calibrated import fisheye_eval_view, make_fisheye_eval_fn
         fisheye_eval = make_fisheye_eval_fn(trainer)
         st = trainer.setup
@@ -316,6 +326,10 @@ def main(argv=None) -> dict:
         """(image, gt) of view i of a split, clipped / masked for metrics."""
         if fisheye_eval is not None:
             img, gt, _ = fisheye_eval_view(trainer, fisheye_eval, scene,
+                                           split, cams, i)
+            return img, gt
+        if cubemap_eval is not None:
+            img, gt, _ = cubemap_eval_view(trainer, cubemap_eval, scene,
                                            split, cams, i)
             return img, gt
         st = trainer.base

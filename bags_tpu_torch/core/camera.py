@@ -12,6 +12,7 @@ addition, normalized inside `quat_to_rotmat`.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -139,3 +140,23 @@ def focals(cam: CameraParams, static: CameraStatic) -> Tuple[torch.Tensor, torch
     fx = static.width / (2.0 * torch.tan(cam.fovx * 0.5))
     fy = static.height / (2.0 * torch.tan(cam.fovy * 0.5))
     return fx, fy
+
+
+def rotate_camera_pose(R_w2c: torch.Tensor, t_w2c: torch.Tensor,
+                       deg_x: float, deg_y: float, deg_z: float
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rotate a camera about its own axes keeping its centre fixed: the
+    c2w rotation by deg_y about the camera's up axis, then deg_x about
+    right, then deg_z about forward; t is recomputed from the centre.
+    Builds the cubemap sub-cameras (`calib/cubemap.SUB_CAMERA_ROTATIONS`).
+    Returns (R_w2c, t_w2c)."""
+    from .lie import so3_exp
+
+    center = -R_w2c.T @ t_w2c
+    R_c2w = R_w2c.T
+    right, up, forward = R_c2w[:, 0], R_c2w[:, 1], R_c2w[:, 2]
+    Ry = so3_exp(math.radians(deg_y) * up)
+    Rx = so3_exp(math.radians(deg_x) * right)
+    Rz = so3_exp(math.radians(deg_z) * forward)
+    R_new = (Rz @ (Rx @ (Ry @ R_c2w))).T
+    return R_new, -R_new @ center

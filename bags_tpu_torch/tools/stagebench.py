@@ -20,7 +20,8 @@ the functions `render()` calls; the profile CLI traces it.
 `tests/test_torch_profile.py` holds its loss and gradients equal to
 `render_step`'s, so that the two cannot drift apart.
 `train_step_stages` splits a training step of a trained model the same way,
-and `fisheye_step_stages` a fisheye step (`chip_smoke.py` calls both).
+`fisheye_step_stages` a fisheye step and `cubemap_step_stages` a cubemap
+step (`chip_smoke.py` calls all three).
 """
 
 from __future__ import annotations
@@ -214,15 +215,8 @@ def train_step_stages(state, scene, cfg, device):
     stages["backward_kernel"] = bwd_ms
     stages["backward_rest"] = stages["backward_all"] - bwd_ms
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        train_step(state, gt, idx, bg, static, rcfg, cfg)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms, peak = _step_ms_and_peak(
+        lambda: train_step(state, gt, idx, bg, static, rcfg, cfg))
     print("train step stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
     print(f"train step: {bins.n_instances} instances, {int(alive.sum())} live of "
           f"{state.capacity}; step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
@@ -263,11 +257,44 @@ def print_busy(label: str, summary: dict, reps: int = 1, top: int = 8) -> None:
                   summary["kernel_ms"].items(), key=lambda kv: -kv[1])[:top]))
 
 
-def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str,
-                        idx: int = 0, sh_degree: int = 0) -> dict:
-    """Where a fisheye training step of a CalibTrainer's state on camera
-    idx goes, on the card, at SH degree `sh_degree` (0: a training step
-    before the first SH ramp): `fisheye_train_step` run with a
+def _stage_split(step) -> dict:
+    """step(tick) run 3 times, tick(name) synchronising the card after each
+    stage: the last rep's host ms by stage name, summed over the calls of a
+    name (a cubemap step's five renders)."""
+    stages = {}
+    for _ in range(3):
+        stages.clear()
+        torch.cuda.synchronize()
+        last = [time.perf_counter()]
+
+        def tick(name):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
+            last[0] = now
+
+        step(tick)
+    return stages
+
+
+def _step_ms_and_peak(step):
+    """5 calls of step() on the host clock, each ended by a synchronise, and
+    the peak memory they reached (GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return step_ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str) -> dict:
+    """Where a fisheye training step of a CalibTrainer's state on camera 0
+    goes, on the card, at SH degree 0 (a training step before the first
+    SH ramp): `fisheye_train_step` run with a
     synchronising timer after each stage (projection, binning, gather,
     forward kernel, lens flow, warp and crop, loss, backward, optimisers;
     3 reps, the last kept); then, timed apart with CUDA events, the
@@ -283,6 +310,7 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str,
     from ..utils.image import center_crop_resample, grid_sample, resize_bilinear
 
     setup, cfg = trainer.setup, trainer.cfg
+    idx, sh_degree = 0, 0
     rcfg = RenderConfig(sh_degree=sh_degree)
     opt_lens, use_vig = trainer.lens_window(1)
 
@@ -292,19 +320,7 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str,
                                   trainer.schedules, opt_lens, use_vig,
                                   timer=timer)
 
-    stages = {}
-    for rep in range(3):
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def tick(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stages[name] = (now - last[0]) * 1e3
-            last[0] = now
-
-        step(tick)
-
+    stages = _stage_split(step)
     base = trainer.base
     cam = base.cams[idx]
     with torch.no_grad():
@@ -366,16 +382,7 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str,
 
     summary = trace_calls(step, trace_dir)
     print_busy("fisheye step trace", summary)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms, peak = _step_ms_and_peak(step)
     print("fisheye step stages_ms " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}))
     print(f"fisheye step (SH {sh_degree}): {bins.n_instances} instances at "
@@ -385,6 +392,100 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str,
           + " ".join(f"{x:.2f}" for x in step_ms) + f"; peak memory {peak:.2f} GiB")
     return {"stages_ms": stages, "step_ms": step_ms, "peak_gib": peak,
             "instances": bins.n_instances, "trace": summary}
+
+
+def cubemap_step_stages(trainer, gt, device, trace_dir: str) -> dict:
+    """Where a cubemap training step of a CalibTrainer's state on camera 0
+    against `gt` goes, on the card, at SH degree 0 (a training step before
+    the first SH ramp): `cubemap_train_step` run with a synchronising
+    timer after each stage, summed over the five renders (projection,
+    binning, gather, forward kernel), then the ray field, the five warps,
+    the loss, the backward and the optimisers (3 reps, the last kept);
+    then, timed apart with CUDA events, the backward kernel on each face's
+    render (their sum `backward_kernel`), the ray field (the cubemap net
+    on the control grid and the upsampling) alone and with its backward,
+    and the five warps with their backward; a profiler trace of one step
+    (device-busy share, launches, kernels by time); 5 whole steps (host
+    clock) and the peak memory. Prints them and returns {"stages_ms",
+    "step_ms", "peak_gib", "instances", "trace"}."""
+    from ..calib import cubemap
+    from ..core.projection import distance_to_camera
+    from ..train.calibrated import cubemap_train_step, face_cameras
+
+    setup, cfg = trainer.setup, trainer.cfg
+    idx, sh_degree = 0, 0
+    rcfg = RenderConfig(sh_degree=sh_degree)
+    sub_q, sub_t = trainer.sub_q[idx], trainer.sub_t[idx]
+
+    def step(timer=None):
+        return cubemap_train_step(trainer.state, gt, idx, trainer.bg, sub_q,
+                                  sub_t, setup, rcfg, cfg, trainer.schedules,
+                                  timer=timer)
+
+    stages = _stage_split(step)
+    base = trainer.base
+    g, static = base.g, setup.static
+    instances, bwd_ms, face_renders = [], 0.0, []
+    with torch.no_grad():
+        for c in face_cameras(base.cams[idx], sub_q, sub_t):
+            proj = project_gaussians(g.xyz, g.scaling(), g.quats,
+                                     g.opacity(base.alive), g.sh_coeffs(), c,
+                                     static, sh_degree, align=base.align)
+            tx, ty = tiles.tile_grid(static.width, static.height)
+            bins = binning.bin_gaussians(proj, tx, ty, sort_key_depth=
+                                         distance_to_camera(g.xyz, c, base.align))
+            rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
+                1, bins.gauss_id)
+            comp = (rows, bins.tile_start, bins.tile_count, tx, ty)
+            color4, t_final = composite.composite_fwd(*comp)
+            g_c, g_tf = torch.randn_like(color4), torch.randn_like(t_final)
+            bwd_ms += timed(lambda: composite.composite_bwd(
+                *comp, g_c, g_tf, color4, t_final), device, 10)
+            instances.append(bins.n_instances)
+            face_renders.append(torch.rand((3, static.height, static.width),
+                                           device=device))
+    stages["backward_kernel"] = bwd_ms
+    stages["backward_rest"] = stages["backward"] - bwd_ms
+
+    net = trainer.state.cubemap_net
+    params = net.parameters()
+    renders = [r.requires_grad_(True) for r in face_renders]
+
+    def with_grad(f, leaves):
+        out = f()
+        outs = out if isinstance(out, list) else [out]
+        torch.autograd.grad(outs, leaves, [torch.ones_like(o) for o in outs])
+
+    def rays():
+        return cubemap.distorted_rays(net, setup.K, static.width,
+                                      static.height, setup.scale)
+
+    fixed = rays().detach()
+
+    def warps():
+        return [cubemap.warp_to_face(setup.K, fixed, r * setup.mask90, face,
+                                     static.height, static.width)
+                for r, face in zip(renders, cubemap.FACES)]
+
+    with torch.no_grad():
+        stages["ray_field_alone"] = timed(rays, device, 5)
+    stages["ray_field_fwd_bwd_alone"] = timed(lambda: with_grad(rays, params),
+                                              device, 5)
+    stages["warps_fwd_bwd_alone"] = timed(lambda: with_grad(warps, renders),
+                                          device, 5)
+
+    summary = trace_calls(step, trace_dir)
+    print_busy("cubemap step trace", summary)
+    step_ms, peak = _step_ms_and_peak(step)
+    print("cubemap step stages_ms " + json.dumps(
+        {k: round(v, 3) for k, v in stages.items()}))
+    print(f"cubemap step (SH {sh_degree}): instances per face "
+          f"{dict(zip(cubemap.FACES, instances))} at {static.width}x"
+          f"{static.height}, {int(base.alive.sum())} live of {base.capacity}; "
+          "step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
+          + f"; peak memory {peak:.2f} GiB")
+    return {"stages_ms": stages, "step_ms": step_ms, "peak_gib": peak,
+            "instances": instances, "trace": summary}
 
 
 def main(argv=None) -> dict:

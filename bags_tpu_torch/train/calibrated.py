@@ -1,34 +1,42 @@
-"""Calibrated training, the fisheye mode (port of the fisheye half of
+"""Calibrated training, the fisheye and cubemap modes (port of
 `bags_tpu/train/calibrated.py`).
 
-`--outside_rasterizer`: render the scene at an extended field of view,
-warp the render into the fisheye frame through the iResNet lens field (or,
-with `--apply2gt`, the fisheye GT into perspective), take the masked
-(1 - lambda) L1 + lambda (1 - SSIM), and optimise jointly the Gaussians,
-the sampled camera's pose and FoV, the lens net (`--iresnet_lr`, within
-`--iresnet_opt_duration`), the vignetting model after `--start_vignetting`
-and the entrance-pupil shift (`--opt_shift`).
-
+`--outside_rasterizer` (fisheye): render the scene at an extended field of
+view, warp the render into the fisheye frame through the iResNet lens
+field (or, with `--apply2gt`, the fisheye GT into perspective), take the
+masked (1 - lambda) L1 + lambda (1 - SSIM), and optimise jointly the
+Gaussians, the sampled camera's pose and FoV, the lens net
+(`--iresnet_lr`, within `--iresnet_opt_duration`), the vignetting model
+after `--start_vignetting` and the entrance-pupil shift (`--opt_shift`).
 The extended-FoV geometry (`make_fisheye_setup`) follows the JAX package:
 for apply2render the render spans focal2fov(f, flow_scale * W) at the
 perspective size, and the camera FoVs the trainer optimises are reset to
-those extended values. The lens, vignetting and shift groups keep Adam
-moments (`optim.AdamMoments`, eps `ADAM_EPS`) with the learning rate
-applied outside, from MultiStepLR schedules of the global step: lens
-x0.5 at 7000, vignetting x10 at 1000, shift x0.1 at 30000. The moments
-are optax's, in its order of rounding, not `torch.optim.Adam`'s: the
-vignetting's first step (a_k 0.01, lr 0.01) lands a_k on 0 within an ulp,
-and the sign of that ulp decides whether the mask's clamp passes any
-gradient afterwards. The cubemap net is kept in the state (untrained
-here) so that a JAX checkpoint's leaves map one to one; the cubemap mode
-itself is ROADMAP.md Queue 1 #10.
+those extended values.
+
+`--cubemap` (fields of view past 180 degrees): five renders a step, the
+camera and its four +-90 degree sub-cameras, each sorted by distance to
+the camera, warped through the cubemap net's distortion field
+(`calib/cubemap.py`), each face's masked L1 and SSIM against the
+circular-masked perspective GT, (1 - lambda) sum L1 + lambda (5 - sum
+SSIM). The Gaussians, the camera row and the cubemap net (every step, NaN
+guarded) are optimised; evaluation stitches the faces by maximum
+intensity.
+
+The lens, cubemap, vignetting and shift groups keep Adam moments
+(`optim.AdamMoments`, eps `ADAM_EPS`) with the learning rate applied
+outside, from MultiStepLR schedules of the global step: lens x0.5 at
+7000, cubemap x0.5 at 2000, 7000 and 9000, vignetting x10 at 1000, shift
+x0.1 at 30000. The moments are optax's, in its order of rounding, not
+`torch.optim.Adam`'s: the vignetting's first step (a_k 0.01, lr 0.01)
+lands a_k on 0 within an ulp, and the sign of that ulp decides whether
+the mask's clamp passes any gradient afterwards.
 
 Checkpoints (`save_calib_checkpoint`, `load_calib_checkpoint`) hold the
 base state under `.base` and the lens, cubemap, vignetting and shift
 leaves and their Adam states under the JAX package's names
-(`.lens.weights[0][1]`, `.lens.u_vecs[0][1]`, `.lens_opt.count`,
-`.lens_opt.mu.weights[0][1]`, `.vig.a_k`, `.shift`, `.shift_opt.nu`, ...),
-so either package's checkpoint restores. The power-iteration vectors
+(`.lens.weights[0][1]`, `.cubemap_net.u_vecs[0][1]`, `.lens_opt.count`,
+`.cubemap_opt.mu.weights[0][1]`, `.vig.a_k`, `.shift`, `.shift_opt.nu`,
+...), so either package's checkpoint restores. The power-iteration vectors
 `u_vecs` are constants, never trained: their moments are written as zeros
 (what the JAX package holds for them) and not read.
 """
@@ -37,21 +45,23 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..calib import cubemap as cubemap_lib
 from ..calib import distortion as dist_lib
 from ..calib.iresnet import IResNetParams, init_iresnet_params
 from ..calib.vignetting import VignettingParams, vignetting_mask
-from ..core.camera import CameraParams, CameraStatic
+from ..core.camera import CameraParams, CameraStatic, rotate_camera_pose
+from ..core.lie import quat_to_rotmat
 from ..model.densify import update_stats
 from ..raster.render import RenderConfig, render
 from .checkpoint import PREFIX, copy_leaves, load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .loop import StepMetrics, Trainer, TrainState
-from .losses import photometric_loss
+from .losses import l1_loss, photometric_loss, ssim
 from .optim import (CAMERA_FIELDS, AdamMoments, adam_moments_init,
                     adam_moments_step, camera_lrs, multistep_schedule,
                     row_adam_update)
@@ -364,22 +374,190 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Cubemap train step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CubemapSetup:
+    """The cubemap mode's constants: the scene's own render size, K of
+    the dataset's focal lengths, the forward face's 90-degree square mask
+    (1, H, W), the circular mask (3, H, W) and the control grid's sample
+    scale."""
+    static: CameraStatic
+    K: np.ndarray
+    mask90: torch.Tensor
+    circ: torch.Tensor
+    scale: int
+
+
+def make_cubemap_setup(static: CameraStatic, focal_x: float, focal_y: float,
+                       cfg: TrainConfig, device=None) -> CubemapSetup:
+    K = np.array([[focal_x, 0, static.width / 2],
+                  [0, focal_y, static.height / 2], [0, 0, 1.0]])
+    return CubemapSetup(
+        static=static, K=K,
+        mask90=cubemap_lib.fov90_square_mask(static.height, static.width,
+                                             focal_x, focal_y, device),
+        circ=cubemap_lib.circular_mask(static.height, static.width,
+                                       cfg.calib.mask_radius, device),
+        scale=int(cfg.calib.control_point_sample_scale))
+
+
+def build_sub_cameras(cams: CameraParams) -> List[CameraParams]:
+    """The five +-90 degree sub-camera batches of `cams` (n, ...), in
+    `cubemap.SUB_CAMERA_ROTATIONS` order, from each camera's effective pose
+    quat_to_rotmat(q_init + dq), t_init + dt (the additive quaternion of
+    `core.camera.pose_w2c`). Each keeps the cameras' FoVs."""
+    with torch.no_grad():
+        R = quat_to_rotmat(cams.q_init + cams.dq)
+        t = cams.t_init + cams.dt
+        subs = []
+        for degs in cubemap_lib.SUB_CAMERA_ROTATIONS:
+            poses = [rotate_camera_pose(R[i], t[i], *degs)
+                     for i in range(R.shape[0])]
+            subs.append(CameraParams.create(
+                torch.stack([r for r, _ in poses]),
+                torch.stack([tt for _, tt in poses]),
+                cams.fovx.detach().clone(), cams.fovy.detach().clone()))
+    return subs
+
+
+def sub_camera_poses(cams: CameraParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The up, down, left and right sub-cameras' base poses of `cams` (n,
+    ...): q (n, 4, 4) and t (n, 4, 3)."""
+    subs = build_sub_cameras(cams)[:4]
+    return (torch.stack([s.q_init for s in subs], dim=1),
+            torch.stack([s.t_init for s in subs], dim=1))
+
+
+def face_cameras(cam: CameraParams, sub_q: torch.Tensor,
+                 sub_t: torch.Tensor) -> List[CameraParams]:
+    """The five face cameras of one camera row (FACES order): the camera
+    itself, then its sub-cameras, which replace only q_init / t_init by
+    sub_q[f] / sub_t[f] (4, ...) and so share the row's dq, dt and FoVs."""
+    return [cam] + [dataclasses.replace(cam, q_init=sub_q[f], t_init=sub_t[f])
+                    for f in range(4)]
+
+
+def _half_masks(circ: torch.Tensor) -> List[torch.Tensor]:
+    """Each face's half mask, FACES order (the forward face's is ones)."""
+    ones = torch.ones_like(circ)
+    return [ones] + [cubemap_lib.mask_half(ones, f)
+                     for f in cubemap_lib.FACES[1:]]
+
+
+def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
+                       bg: torch.Tensor, sub_q: torch.Tensor,
+                       sub_t: torch.Tensor, setup: CubemapSetup,
+                       rcfg: RenderConfig, cfg: TrainConfig, schedules,
+                       timer: Optional[Callable[[str], None]] = None
+                       ) -> CalibStepMetrics:
+    """One cubemap step on camera `cam_idx` against its GT (3, H, W), the
+    dataset's perspective image; updates `state` in place
+    (`make_cubemap_train_step`, calibrated.py:453).
+
+    Five renders sorted by distance to the camera, one of each of
+    `face_cameras`, so that the row's gradient sums over them. Only the
+    main render carries the densify probes. The faces are warped
+    (`cubemap.render_cubemap_faces`) and the loss is (1 - lambda) sum L1 +
+    lambda (5 - sum SSIM) of img * circ * half_mask against
+    gt * circ * half_mask. The Gaussians take their Adam step, the camera
+    row its row Adam step and the cubemap net its moments step on every
+    step behind the NaN guard (a non-finite gradient zeroes them all; the
+    moments still step). timer(name), if given, is called after each
+    stage."""
+    tick = timer or (lambda name: None)
+    b = state.base
+    g, cams = b.g, b.cams
+    rcfg = dataclasses.replace(rcfg, sort_by_distance=True)
+    row = {f: getattr(cams, f)[cam_idx].detach().clone().requires_grad_(True)
+           for f in CAMERA_FIELDS}
+    cam = CameraParams(q_init=cams.q_init[cam_idx],
+                       t_init=cams.t_init[cam_idx], **row)
+    probe = torch.zeros((b.capacity, 2), device=g.xyz.device,
+                        requires_grad=True)
+    absp = torch.zeros_like(probe, requires_grad=True)
+    cub_named = state.cubemap_net.named_tensors(trained_only=True)
+    for p in cub_named.values():
+        p.requires_grad_(True)
+        p.grad = None
+
+    gauss = (g.xyz, g.scaling(), g.quats, g.opacity(b.alive), g.sh_coeffs())
+    main_cam, *side_cams = face_cameras(cam, sub_q, sub_t)
+    main = render(*gauss, main_cam, setup.static, rcfg, bg=bg, align=b.align,
+                  probe2d=probe, abs_probe=absp, timer=tick)
+    outs = [main] + [render(*gauss, c, setup.static, rcfg, bg=bg,
+                            align=b.align, timer=tick) for c in side_cams]
+    faces, _ = cubemap_lib.render_cubemap_faces(
+        lambda i: outs[i].render, state.cubemap_net, setup.K,
+        setup.static.width, setup.static.height, setup.scale, setup.mask90,
+        timer=tick)
+    l1_sum = ssim_sum = 0.0
+    for img, hm in zip(faces, _half_masks(setup.circ)):
+        a, ref = img * setup.circ * hm, gt * setup.circ * hm
+        l1_sum = l1_sum + l1_loss(a, ref)
+        ssim_sum = ssim_sum + ssim(a, ref)
+    lam = cfg.opt.lambda_dssim
+    loss = (1 - lam) * l1_sum + lam * (5.0 - ssim_sum)
+    tick("loss")
+
+    b.g_opt.zero_grad()
+    loss.backward()
+    tick("backward")
+
+    b.g_opt.param_groups[0]["lr"] = b.xyz_sched(b.step)
+    b.g_opt.step()
+    row_grads = {f: row[f].grad for f in CAMERA_FIELDS}
+    row_adam_update(cams, b.cam_opt, row_grads, cam_idx,
+                    camera_lrs(cfg.calib, b.step))
+    cub_grads = _grads_or_zeros(cub_named)
+    grads = {f".g.{f.name}": getattr(g, f.name).grad
+             for f in dataclasses.fields(g)}
+    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
+    grads.update({".cubemap_net" + k: v for k, v in cub_grads.items()})
+    bad = torch.stack([~torch.isfinite(v).all()
+                       for v in cub_grads.values()]).any()
+    cub_grads = {k: torch.where(bad, torch.zeros_like(v), v)
+                 for k, v in cub_grads.items()}
+    adam_moments_step(cub_named, cub_grads, state.cubemap_opt,
+                      schedules["cubemap"](b.step))
+    with torch.no_grad():
+        b.stats = update_stats(b.stats, probe.grad, absp.grad, main.radii,
+                               main.visibility)
+    b.step += 1
+    tick("optimizers")
+    return CalibStepMetrics(loss=loss.detach(), l1=loss.detach(),
+                            n_alive=b.alive.sum(),
+                            n_dropped=sum(o.n_dropped for o in outs),
+                            image=faces[0].detach(), grads=grads)
+
+
+# ---------------------------------------------------------------------------
 # Trainer
 # ---------------------------------------------------------------------------
 
 class CalibTrainer(Trainer):
-    """Trainer of the fisheye mode (`--outside_rasterizer`).
+    """Trainer of the fisheye mode (`--outside_rasterizer`) and the cubemap
+    mode (`--cubemap`, which takes precedence).
 
-    Builds the extended-FoV setup and control points, resets the camera
-    FoVs to the extended ones, wraps the TrainState in a CalibState,
-    pre-fits the lens net to the COLMAP coefficients (`--opt_distortion`
-    without `--no_init_iresnet`; `LENS_PREFIT_ITERS` Adam steps, the time
-    in `prefit_s`), and drives `fisheye_train_step` inside the base trainer's
-    cadences. The lens steps while iresnet_opt_duration[0] <= it <
-    iresnet_opt_duration[1] and it >= start_opt_lens; vignetting after
+    Fisheye: builds the extended-FoV setup and control points, resets the
+    camera FoVs to the extended ones, pre-fits the lens net to the COLMAP
+    coefficients (`--opt_distortion` without `--no_init_iresnet`;
+    `LENS_PREFIT_ITERS` Adam steps, the time in `prefit_s`) and drives
+    `fisheye_train_step`. The lens steps while iresnet_opt_duration[0] <=
+    it < iresnet_opt_duration[1] and it >= start_opt_lens; vignetting after
     start_vignetting. The step's GT is the fisheye image: `fish_images`
-    (idx -> (3, H, W)) when given, else `gt_images`, and the base
-    trainer's prefetch loads it."""
+    (idx -> (3, H, W)) when given, else `gt_images`.
+
+    Cubemap: keeps the scene's size and FoVs, pre-fits the cubemap net
+    (`init_cubemap_net`, unless `--no_init_iresnet`; the time in
+    `prefit_s`), builds every camera's sub-camera poses once (`sub_q`,
+    `sub_t`) and drives `cubemap_train_step` against `gt_images`. Its net
+    steps on every iteration, as the JAX package's does: the lens window
+    does not apply to it.
+
+    Either way the TrainState is wrapped in a CalibState, and the base
+    trainer's cadences and prefetch run the steps."""
 
     def __init__(self, g, alive, cams, static, cfg: TrainConfig,
                  scene_extent: float, gt_images, focal_x: float,
@@ -387,11 +565,30 @@ class CalibTrainer(Trainer):
                  bg=None, rcfg: Optional[RenderConfig] = None, seed: int = 0,
                  fish_images=None):
         calib = cfg.calib
-        if calib.cubemap:
-            raise NotImplementedError(
-                "--cubemap is not ported yet: ROADMAP.md Queue 1 #10, slice 4 "
-                "(lens calibration)")
+        if cfg.opt.batch_cams > 1 and calib.cubemap:
+            raise ValueError("--batch_cams > 1 is not supported with "
+                             "--cubemap (use the fisheye mode or K=1)")
+        self.mode = "cubemap" if calib.cubemap else "fisheye"
         self.focal = (float(focal_x), float(focal_y))
+        self.prefit_s = None
+        device = g.xyz.device
+        if self.mode == "cubemap":
+            super().__init__(g, alive, cams, static, cfg, scene_extent,
+                             gt_images, bg=bg, rcfg=rcfg, seed=seed)
+            self.setup = make_cubemap_setup(static, focal_x, focal_y, cfg,
+                                            device)
+            self.state, self.schedules = init_calib_state(self.state, cfg,
+                                                          seed)
+            if not calib.no_init_iresnet:
+                coeff = (dist_lib.read_colmap_coeff(source_path)
+                         if source_path else [0.0, 0.0, 0.0, 0.0])
+                print(f"pre-fitting the cubemap net to coeff {coeff} ...",
+                      flush=True)
+                self.prefit_s = _timed(lambda: dist_lib.init_cubemap_net(
+                    self.state.cubemap_net, coeff), device)
+                print(f"cubemap pre-fit: {self.prefit_s:.2f} s", flush=True)
+            self.sub_q, self.sub_t = sub_camera_poses(self.base.cams)
+            return
         fish_wh = fish_wh or persp_wh
         self.setup = make_fisheye_setup(
             focal_x, focal_y, persp_wh, fish_wh, flow_scale=calib.flow_scale,
@@ -405,11 +602,9 @@ class CalibTrainer(Trainer):
                          scene_extent,
                          fish_images if fish_images is not None else gt_images,
                          bg=bg, rcfg=rcfg, seed=seed)
-        device = g.xyz.device
         self.p_view = fisheye_control_points(
             self.setup, focal_x, focal_y, calib.flow_scale, device=device)
         self.state, self.schedules = init_calib_state(self.state, cfg, seed)
-        self.prefit_s = None
         if calib.opt_distortion and not calib.no_init_iresnet:
             coeff = (dist_lib.read_colmap_coeff(source_path) if source_path
                      else [0.0, 0.0, 0.0, 0.0])
@@ -417,13 +612,9 @@ class CalibTrainer(Trainer):
                           [0, focal_y, fish_wh[1] / 2], [0, 0, 1.0]])
             print(f"pre-fitting lens net to coeff {coeff} "
                   f"({LENS_PREFIT_ITERS} Adam steps) ...", flush=True)
-            t0 = time.perf_counter()
-            dist_lib.init_iresnet_from_colmap(self.state.lens, K, fish_wh[0],
-                                              fish_wh[1], coeff,
-                                              iters=LENS_PREFIT_ITERS)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            self.prefit_s = time.perf_counter() - t0
+            self.prefit_s = _timed(lambda: dist_lib.init_iresnet_from_colmap(
+                self.state.lens, K, fish_wh[0], fish_wh[1], coeff,
+                iters=LENS_PREFIT_ITERS), device)
             print(f"lens pre-fit: {self.prefit_s:.2f} s", flush=True)
 
     @property
@@ -447,14 +638,29 @@ class CalibTrainer(Trainer):
 
     def step(self, idx: int, gt: torch.Tensor, it: Optional[int] = None
              ) -> CalibStepMetrics:
-        """One fisheye step on camera idx against its fisheye GT at
+        """One step of the trainer's mode on camera idx against its GT (the
+        fisheye image, or the cubemap mode's perspective image) at
         iteration `it` of `run` (the next step's number when None)."""
+        rcfg = dataclasses.replace(self.rcfg, sh_degree=self.active_sh_degree)
+        if self.mode == "cubemap":
+            return cubemap_train_step(self.state, gt, idx, self.bg,
+                                      self.sub_q[idx], self.sub_t[idx],
+                                      self.setup, rcfg, self.cfg,
+                                      self.schedules)
         opt_lens, use_vig = self.lens_window(
             self.base.step + 1 if it is None else it)
-        rcfg = dataclasses.replace(self.rcfg, sh_degree=self.active_sh_degree)
         return fisheye_train_step(self.state, gt, self.p_view, idx, self.bg,
                                   self.setup, rcfg, self.cfg, self.schedules,
                                   opt_lens, use_vig)
+
+
+def _timed(fn, device) -> float:
+    """Seconds of fn(), the device synchronised after it."""
+    t0 = time.perf_counter()
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
 
 
 def fisheye_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
@@ -507,3 +713,65 @@ def make_fisheye_eval_fn(trainer: CalibTrainer,
                 out.n_dropped)
 
     return eval_one
+
+
+def max_intensity_stitch(faces: List[torch.Tensor]) -> torch.Tensor:
+    """The warped faces (FACES order) stitched into one image: each pixel
+    takes the half-masked face of largest channel sum, the first one on a
+    tie, 0 where every face is 0."""
+    final = torch.zeros_like(faces[0])
+    intensity = final.sum(dim=0, keepdim=True)
+    for img, hm in zip(faces, _half_masks(faces[0])):
+        masked = img * hm
+        inten = masked.sum(dim=0, keepdim=True)
+        sel = inten > intensity
+        final = torch.where(sel, masked, final)
+        intensity = torch.where(sel, inten, intensity)
+    return final
+
+
+def make_cubemap_eval_fn(trainer: CalibTrainer):
+    """Held-out evaluation of the cubemap mode: the five faces rendered at
+    the full SH degree (sorted by distance, no background, the trainer's
+    instance budget), warped through the current cubemap net, stitched by
+    `max_intensity_stitch` and circular-masked, against the
+    circular-masked GT. Returns eval_one(state, cam, gt, sub_q, sub_t) ->
+    (image clipped to [0, 1], gt, instances dropped)."""
+    setup = trainer.setup
+    rcfg = dataclasses.replace(trainer.rcfg, sh_degree=trainer.max_sh_degree,
+                               sort_by_distance=True)
+
+    @torch.no_grad()
+    def eval_one(state: CalibState, cam: CameraParams, gt: torch.Tensor,
+                 sub_q: torch.Tensor, sub_t: torch.Tensor):
+        b = state.base
+        g = b.g
+        gauss = (g.xyz, g.scaling(), g.quats, g.opacity(b.alive),
+                 g.sh_coeffs())
+        bg = torch.zeros(3, device=g.xyz.device)
+        outs = [render(*gauss, c, setup.static, rcfg, bg=bg, align=b.align)
+                for c in face_cameras(cam, sub_q, sub_t)]
+        faces, _ = cubemap_lib.render_cubemap_faces(
+            lambda i: outs[i].render, state.cubemap_net, setup.K,
+            setup.static.width, setup.static.height, setup.scale,
+            setup.mask90)
+        final = max_intensity_stitch(faces)
+        return (torch.clamp(final * setup.circ, 0.0, 1.0), gt * setup.circ,
+                sum(o.n_dropped for o in outs))
+
+    return eval_one
+
+
+def cubemap_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
+                      cams: CameraParams, i: int):
+    """View i of a split through `eval_one` (of `make_cubemap_eval_fn`)
+    against its perspective image: a training view with the sub-camera
+    poses the trainer built at its start, a test view with its own.
+    Returns (image, gt, instances dropped)."""
+    if split == "test":
+        sub_q, sub_t = sub_camera_poses(cams[i:i + 1])
+        sub_q, sub_t, gt = sub_q[0], sub_t[0], scene.test_image(i)
+    else:
+        sub_q, sub_t = trainer.sub_q[i], trainer.sub_t[i]
+        gt = scene.train_image(i)
+    return eval_one(trainer.state, cams[i], gt, sub_q, sub_t)

@@ -3,7 +3,8 @@
 
   * `grid_sample`: bilinear, zeros padding, align_corners=True, of a
     (C, H, W) image at an (Ho, Wo, 2) grid of xy in [-1, 1]
-    (`F.grid_sample`);
+    (`F.grid_sample`), with the JAX package's result where a sample
+    position is not finite (below);
   * `resize_bilinear`: half-pixel-centre bilinear upsampling
     (`F.interpolate`, align_corners=False, no antialias). The JAX package's
     `jax.image.resize(method="linear")` agrees with it only when
@@ -21,12 +22,50 @@ import torch
 import torch.nn.functional as F
 
 
+def _jax_tap(i: torch.Tensor, n: int) -> torch.Tensor:
+    """The pixel the JAX package gathers for tap position i (float), as an
+    align_corners coordinate in [-1, 1]: clipped to [0, n - 1], NaN to 0
+    (XLA's float-to-int conversion)."""
+    return torch.nan_to_num(torch.clamp(i, 0, n - 1), nan=0.0) * (2.0 / (n - 1)) - 1.0
+
+
 def grid_sample(image: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sample `image` (C, H, W) at `grid` (Ho, Wo, 2) of xy in
     [-1, 1] (align_corners=True); taps outside the image read zero.
-    Differentiable in both."""
-    return F.grid_sample(image[None], grid[None], mode="bilinear",
-                         padding_mode="zeros", align_corners=True)[0]
+    Differentiable in both.
+
+    Where a sample position (x + 1) (W - 1) / 2 or its y is inf or NaN
+    (a cubemap face grid divides by a ray's x or y, which can be 0), the
+    JAX package's bilinear weights are NaN: the sample is NaN, its grid
+    cotangent is NaN in each coordinate whose partner is not finite, and
+    each of its four taps' clipped pixels gets a NaN image cotangent.
+    `F.grid_sample` gives none of that, so it samples those positions from
+    far outside the image (0, no gradient), and two terms that are 0 at a
+    finite sample add JAX's, with no host synchronisation: tx (ty x 0) (the
+    value and the grid cotangent) and the four clipped taps times it, read
+    by a nearest-pixel `F.grid_sample` (from outside the image, so reading
+    and scattering nothing, at a finite sample). Left as `F.grid_sample`
+    has it: a non-finite coordinate whose partner is finite gets a grid
+    cotangent of 0 where JAX's is finite, and a non-finite cotangent of a
+    finite sample reaches the image only at its taps inside the image,
+    where JAX's also reaches the clipped pixels of its taps outside."""
+    c, h, w = image.shape
+    ho, wo = grid.shape[:2]
+    fx = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    fy = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    x0, y0 = torch.floor(fx.detach()), torch.floor(fy.detach())
+    tx, ty = fx - x0, fy - y0
+    bad = ~(torch.isfinite(tx) & torch.isfinite(ty)).detach()
+    out = F.grid_sample(image[None], grid.masked_fill(bad[..., None], -1e4)[None],
+                        mode="bilinear", padding_mode="zeros", align_corners=True)[0]
+    nan_w = tx * (ty * 0.0)
+    xs = [_jax_tap(x0 + d, w) for d in (0, 1)]
+    ys = [_jax_tap(y0 + d, h) for d in (0, 1)]
+    taps = torch.stack([torch.stack((x, y), dim=-1) for y in ys for x in xs])
+    taps = taps.masked_fill(~bad[..., None], -1e4).reshape(1, 4 * ho, wo, 2)
+    vals = F.grid_sample(image[None], taps, mode="nearest", padding_mode="zeros",
+                         align_corners=True)[0].reshape(c, 4, ho, wo)
+    return out + nan_w + vals.sum(dim=1) * nan_w.detach()
 
 
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:

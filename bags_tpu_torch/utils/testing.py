@@ -7,6 +7,7 @@ the JAX package's, so both packages get identical inputs.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -139,15 +140,9 @@ def fisheye_toy(device, gt: torch.Tensor = None) -> dict:
     extended FoV, a 2-block lens net of width 32 (weights x 0.2), and the
     fisheye GT of camera 1 through the known lens KNOWN_LENS unless `gt` is
     given. Returns dict(state, schedules, cfg, setup, p_view, gt)."""
-    import dataclasses
-
-    from .. import convert
-    from ..calib.iresnet import init_iresnet_params
     from ..raster.render import RenderConfig, render
     from ..train import calibrated
     from ..train.config import TrainConfig
-    from ..train.loop import init_train_state
-    from ..model.gaussians import Gaussians
 
     dev = resolve_device(device)
     w, h, fov = 64, 48, 0.8
@@ -177,6 +172,32 @@ def fisheye_toy(device, gt: torch.Tensor = None) -> dict:
                          sc["sh_coeffs"], cams[1], setup.render_static,
                          RenderConfig(sh_degree=3)).render
             gt = known_lens_fisheye(img, setup, p_view, KNOWN_LENS)
+    state, schedules = _toy_calib_state(sc, cams, cfg, dev,
+                                        {"lens": _narrow_net_np()})
+    return dict(state=state, schedules=schedules, cfg=cfg, setup=setup,
+                p_view=p_view, gt=gt.to(dev))
+
+
+def _narrow_net_np() -> dict:
+    """The toys' lens net: 2 blocks of width 32 (seed 3), weights x 0.2, as
+    numpy lists in the JAX layout."""
+    from ..calib.iresnet import init_iresnet_params
+
+    net = init_iresnet_params(hidden=32, n_blocks=2, n_layers=2, seed=3)
+    return {f: [[(t.detach() * (0.2 if f == "weights" else 1.0)).numpy()
+                 for t in blk] for blk in getattr(net, f)]
+            for f in ("weights", "biases", "u_vecs")}
+
+
+def _toy_calib_state(sc, cams, cfg, dev, nets: dict):
+    """The toy scene's 700 Gaussians nudged off their true positions, their
+    TrainState over `cams`, and the CalibState around it with the nets of
+    `nets` ("lens" and, if given, "cubemap_net"), vignetting at its init
+    and a zero shift. Returns (state, schedules)."""
+    from .. import convert
+    from ..model.gaussians import Gaussians
+    from ..train.loop import init_train_state
+
     op = sc["opacity"]
     nudge = 0.02 * torch.sin(torch.arange(3 * 700, device=dev,
                                           dtype=torch.float32)).reshape(-1, 3)
@@ -187,17 +208,10 @@ def fisheye_toy(device, gt: torch.Tensor = None) -> dict:
                   opacity_raw=torch.log(op / (1 - op)))
     base = init_train_state(g, torch.ones(700, dtype=torch.bool, device=dev),
                             cams, cfg, 2.0)
-    lens = init_iresnet_params(hidden=32, n_blocks=2, n_layers=2, seed=3)
-    lens_np = {f: [[(t.detach() * (0.2 if f == "weights" else 1.0)).numpy()
-                    for t in blk] for blk in getattr(lens, f)]
-               for f in ("weights", "biases", "u_vecs")}
-    state, schedules = convert.calib_state_from_numpy(base, cfg, {
-        "lens": lens_np,
-        "vig": {"a_k": np.full(4, 0.01, np.float32),
-                "beta_k": np.linspace(2, 8, 4).astype(np.float32)},
+    return convert.calib_state_from_numpy(base, cfg, {
+        **nets, "vig": {"a_k": np.full(4, 0.01, np.float32),
+                        "beta_k": np.linspace(2, 8, 4).astype(np.float32)},
         "shift": np.zeros(3, np.float32)}, device=dev)
-    return dict(state=state, schedules=schedules, cfg=cfg, setup=setup,
-                p_view=p_view, gt=gt.to(dev))
 
 
 def write_fisheye_pair(root: str, image_paths, fish_images, width: int,
@@ -216,6 +230,127 @@ def write_fisheye_pair(root: str, image_paths, fish_images, width: int,
         os.path.join(fish, "sparse", "0", "cameras.bin"),
         {1: colmap.ColmapCamera(1, "OPENCV_FISHEYE", width, height, np.array(
             [fx, fy, width / 2, height / 2, *[float(c) for c in coeff]]))})
+
+
+# The cubemap cameras' rig, inside the Gaussian box of `make_toy_scene`:
+# centres CUBE_RIG_OFFSET around CUBE_RIG_CENTER (a small circle in x / y),
+# each looking along +z turned by up to CUBE_RIG_YAW radians about y.
+CUBE_RIG_CENTER = (0.0, 0.0, 6.0)
+CUBE_RIG_OFFSET = 0.2
+CUBE_RIG_YAW = 0.3
+
+
+def cubemap_rig(n_cams: int) -> list:
+    """The world-to-camera (R (3, 3), t (3,)) of each cubemap camera, float32
+    numpy, so that all five faces see the content of `make_toy_scene`."""
+    out = []
+    for i in range(n_cams):
+        a = 2 * np.pi * i / n_cams
+        C = np.asarray(CUBE_RIG_CENTER, np.float64) + CUBE_RIG_OFFSET * np.array(
+            [np.cos(a), np.sin(a), 0.0])
+        th = CUBE_RIG_YAW * np.sin(a)
+        R = np.array([[np.cos(th), 0, -np.sin(th)], [0, 1, 0],
+                      [np.sin(th), 0, np.cos(th)]], np.float32)
+        out.append((R, (-R @ C.astype(np.float32)).astype(np.float32)))
+    return out
+
+
+def cubemap_cameras(n_cams: int, fovx: float, fovy: float, device=None):
+    """The CameraParams of `cubemap_rig(n_cams)` at the given FoVs."""
+    dev = resolve_device(device)
+    return [CameraParams.create(R, t, fovx, fovy, device=dev)
+            for R, t in cubemap_rig(n_cams)]
+
+
+def cubemap_gt(face_renders, cubemap_net, focal_x: float, focal_y: float,
+               mask_radius: float, control_point_sample_scale: int
+               ) -> torch.Tensor:
+    """The GT of a known-lens cubemap dataset (3, H, W): the five face
+    renders (FACES order) warped through `cubemap_net`, stitched by
+    maximum intensity and circular-masked, as the cubemap mode's
+    evaluation makes its image."""
+    from ..calib import cubemap
+    from ..train.calibrated import max_intensity_stitch
+
+    _, h, w = face_renders[0].shape
+    dev = face_renders[0].device
+    K = np.array([[focal_x, 0, w / 2], [0, focal_y, h / 2], [0, 0, 1.0]])
+    with torch.no_grad():
+        faces, _ = cubemap.render_cubemap_faces(
+            lambda i: face_renders[i], cubemap_net, K, w, h,
+            control_point_sample_scale,
+            cubemap.fov90_square_mask(h, w, focal_x, focal_y, dev))
+        return max_intensity_stitch(faces) * cubemap.circular_mask(
+            h, w, mask_radius, dev)
+
+
+def write_cubemap_dataset(root: str, cams, width: int, height: int,
+                          focal: float, points: np.ndarray,
+                          colors: np.ndarray, render_faces, cubemap_net,
+                          mask_radius: float,
+                          control_point_sample_scale: int) -> list:
+    """A COLMAP dataset for the cubemap mode at `root`: PINHOLE cameras
+    `cams` of focal `focal` (the forward face spans 90 degrees where
+    focal = width / 2), the `points` / `colors` in points3D, and in
+    `images/` each camera's `cubemap_gt` through `cubemap_net`.
+    render_faces(cam) returns the camera's five face renders (FACES
+    order) and their instance counts. Returns the counts, one list a
+    camera."""
+    images, counts = [], []
+    for cam in cams:
+        faces, n = render_faces(cam)
+        gt = cubemap_gt(faces, cubemap_net, focal, focal, mask_radius,
+                        control_point_sample_scale)
+        images.append(np.round(gt.clamp(0, 1).permute(1, 2, 0).cpu().numpy()
+                               * 255).astype(np.uint8))
+        counts.append(n)
+    write_colmap_scene(root, cams, width, height, focal, focal, points,
+                       colors, images)
+    return counts
+
+
+def cubemap_toy(device, gt: torch.Tensor = None) -> dict:
+    """A toy cubemap training setup: 700 SH-1 Gaussians of the 48x40 toy
+    scene, nudged off their true positions, two cameras inside their box
+    (focal 24: the forward face spans 90 degrees), mask radius 20, control
+    points every 8 pixels, a 2-block cubemap net of width 32 (weights x
+    0.2) trained at lr 1e-4, pose and FoVs trained; the GT of camera 0 is
+    the true scene through that net (`cubemap_gt`) unless `gt` is given.
+    Returns dict(state, schedules, cfg, setup, sub_q, sub_t, gt)."""
+    from .. import convert
+    from ..raster.render import RenderConfig, render
+    from ..train import calibrated
+    from ..train.config import TrainConfig
+
+    dev = resolve_device(device)
+    w, h, focal = 48, 40, 24.0
+    cfg = TrainConfig()
+    cfg.model.sh_degree = 1
+    c = cfg.calib
+    c.cubemap = c.opt_cam = c.opt_intrinsic = True
+    c.mask_radius, c.control_point_sample_scale, c.iresnet_lr = 20, 8, 1e-4
+    sc = make_toy_scene(n=700, width=w, height=h, sh_degree=1, seed=0,
+                        device=dev)
+    cams = CameraParams.stack(cubemap_cameras(
+        2, 2 * np.arctan(w / (2 * focal)), 2 * np.arctan(h / (2 * focal)),
+        device=dev))
+    static = CameraStatic(width=w, height=h)
+    setup = calibrated.make_cubemap_setup(static, focal, focal, cfg, dev)
+    sub_q, sub_t = calibrated.sub_camera_poses(cams)
+    net_np = _narrow_net_np()
+    if gt is None:
+        true = [sc[k] for k in ("xyz", "scales", "quats", "opacity",
+                                "sh_coeffs")]
+        rcfg = RenderConfig(sh_degree=1, sort_by_distance=True)
+        with torch.no_grad():
+            faces = [render(*true, c, static, rcfg).render for c in
+                     calibrated.face_cameras(cams[0], sub_q[0], sub_t[0])]
+            gt = cubemap_gt(faces, convert.iresnet_from_numpy(net_np, dev),
+                            focal, focal, c.mask_radius, 8)
+    state, schedules = _toy_calib_state(sc, cams, cfg, dev,
+                                        {"lens": net_np, "cubemap_net": net_np})
+    return dict(state=state, schedules=schedules, cfg=cfg, setup=setup,
+                sub_q=sub_q, sub_t=sub_t, gt=gt.to(dev))
 
 
 def write_image(path: str, img: np.ndarray) -> None:

@@ -100,11 +100,39 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      and the kernels' times and bounds on it, one step split by stage
      (`tools/stagebench.fisheye_step_stages`, with a profiler trace), the
      step's ms, the peak memory, and a trace of ten pre-fit steps;
- 12. prints the kernels line (JSON: the forward, the backward, the
+ 12. the cubemap path (slice 4) at full width. First a toy cubemap step
+     (five renders sorted by distance, the cubemap net's ray field, five
+     warps) through both kernels on the card against the same step on the
+     CPU: loss and forward face within 2e-5, every gradient within atol
+     1e-5, rtol 1e-3, 5 forward and 5 backward launches. Then a dataset
+     `cube/` at 1600x1080 (the step-5 model's 1M centres, 8 cameras inside
+     the Gaussian box near (0, 0, 6), focal 800): each camera's five faces
+     rendered by the plain version, warped through a full-size cubemap net
+     that `init_cubemap_net` fits on the card to the known lens, stitched by
+     maximum intensity and masked to the disc of radius 512 (each face's
+     instances printed; a side face that renders nothing fails), and
+     `bags_tpu_torch.cli.train --preset cubemap --init_type sfm` for 30
+     iterations (densify threshold 5e-8 as in step 6). Checks: 5 forward
+     and 5 backward launches per step (evaluation renders counted apart), a
+     finite falling loss, the cubemap net changed between the checkpoints
+     after steps 1 and 30, the checkpoint's cubemap leaves, the render CLI
+     restoring the model (plain views, one launch a view), and both kernels
+     on train view 0's forward and left faces against their plain versions
+     (step 5's and step 7's full-width criteria), with their times, bounds
+     and instances; then the step split by stage
+     (`tools/stagebench.cubemap_step_stages`, with a profiler trace), the
+     step's ms over 5 steps and the peak memory;
+ 13. known-lens recovery: the port's `tools/lens_recovery.py` in-process
+     (600 pre-fit steps, 500 iterations at lens lr 3e-5, 400x400, 20,000
+     Gaussians, 12 cameras). Checks the JAX tool's JSON keys, finite
+     values, one backward launch an iteration and a flow error that falls;
+     prints its JSON line;
+ 14. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
      every variant's under "variants"; the forward's and the backward's
-     launches by path, fisheye included, and their numbers on the
-     extended-FoV render) and, last, the device line (JSON).
+     launches by path, fisheye, cubemap and recovery included, and their
+     numbers on the extended-FoV render and the cubemap faces) and, last,
+     the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -129,10 +157,12 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def frame(g, alive, cam, static, sh_degree, timer=None):
-    """Projection, binning and gather of one view, as `render()` runs them.
-    timer(name) is called after each stage."""
-    from bags_tpu_torch.core.projection import project_gaussians
+def frame(g, alive, cam, static, sh_degree, timer=None, sort_by_distance=False):
+    """Projection, binning and gather of one view, as `render()` runs them
+    (with sort_by_distance, each tile's instances in order of distance to
+    the camera, as the cubemap mode's renders sort them). timer(name) is
+    called after each stage."""
+    from bags_tpu_torch.core.projection import distance_to_camera, project_gaussians
     from bags_tpu_torch.raster import binning, tiles
     from bags_tpu_torch.raster.render import build_packet_table
 
@@ -141,7 +171,8 @@ def frame(g, alive, cam, static, sh_degree, timer=None):
                              g.sh_coeffs(), cam, static, sh_degree)
     tick("projection")
     tiles_x, tiles_y = tiles.tile_grid(static.width, static.height)
-    bins = binning.bin_gaussians(proj, tiles_x, tiles_y)
+    bins = binning.bin_gaussians(proj, tiles_x, tiles_y, sort_key_depth=(
+        distance_to_camera(g.xyz, cam) if sort_by_distance else None))
     tick("binning")
     rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
         1, bins.gauss_id)
@@ -1168,49 +1199,58 @@ def write_fisheye_gt(model, data, device):
           f"{setup.flow_hw}, control grid {setup.grid_hw}")
 
 
-def fisheye_toy_check(device):
-    """A toy fisheye step (`utils/testing.fisheye_toy`: apply2render, lens,
-    vignetting and shift trained) on the card through both kernels against
-    the same step on the CPU through the plain versions, from the same
-    state and GT: loss and warped image within 2e-5; the gradients of the
-    Gaussians, the camera row, the lens, vignetting and the shift within
-    atol 1e-5, rtol 1e-3 (step 11)."""
+def toy_step_check(label, make_toy, run_step, renders, device):
+    """A toy training step (`make_toy(device, gt)` builds it,
+    `run_step(toy, device)` takes it) on the card through both kernels
+    against the same step on the CPU through the plain versions, from the
+    same state and GT: loss and image within 2e-5, every gradient within
+    atol 1e-5, rtol 1e-3, and `renders` forward and backward launches on
+    the card."""
     import torch
     from bags_tpu_torch.raster import composite
-    from bags_tpu_torch.raster.render import RenderConfig
-    from bags_tpu_torch.train.calibrated import fisheye_train_step
-    from bags_tpu_torch.utils.testing import fisheye_toy
 
     out, gt = {}, None
     for where, dev in (("cpu", torch.device("cpu")), ("card", device)):
-        t = fisheye_toy(dev, gt)
+        t = make_toy(dev, gt)
         gt = t["gt"].cpu()
         before = composite.fwd_launches, composite.bwd_launches
-        out[where] = fisheye_train_step(
-            t["state"], t["gt"], t["p_view"], 0, torch.zeros(3, device=dev),
-            t["setup"], RenderConfig(sh_degree=3), t["cfg"], t["schedules"],
-            True, True)
+        out[where] = run_step(t, dev)
     torch.cuda.synchronize()
     check((composite.fwd_launches, composite.bwd_launches)
-          == (before[0] + 1, before[1] + 1),
-          "toy fisheye step: the card's step did not launch both kernels")
+          == (before[0] + renders, before[1] + renders),
+          f"{label}: the card's step did not launch each kernel {renders} "
+          "time(s)")
     cpu, card = out["cpu"], out["card"]
     loss_d = abs(float(card.loss) - float(cpu.loss))
     img_d = float((card.image.cpu() - cpu.image).abs().max())
-    print(f"toy fisheye step card vs cpu: loss {float(card.loss):.6f} vs "
+    print(f"{label} card vs cpu: loss {float(card.loss):.6f} vs "
           f"{float(cpu.loss):.6f}, image max_abs_diff {img_d:.3e}")
     check(loss_d <= 2e-5 and img_d <= 2e-5,
-          f"toy fisheye step: loss diff {loss_d}, image diff {img_d}")
-    check(set(card.grads) == set(cpu.grads), "toy fisheye step: gradient names")
+          f"{label}: loss diff {loss_d}, image diff {img_d}")
+    check(set(card.grads) == set(cpu.grads), f"{label}: gradient names")
     worst = {}
     for k, v in cpu.grads.items():
         got = card.grads[k].detach().cpu()
         worst[k] = float((got - v).abs().max())
         check(bool(torch.isfinite(got).all()) and torch.allclose(
-            got, v, atol=1e-5, rtol=1e-3), f"toy fisheye gradient {k}: max diff "
+            got, v, atol=1e-5, rtol=1e-3), f"{label} gradient {k}: max diff "
                                             f"{worst[k]}")
-    print("toy fisheye gradients card vs cpu, max abs diff: "
-          + json.dumps({k: f"{v:.2e}" for k, v in worst.items()}))
+    print(f"{label} gradients card vs cpu, largest max abs diffs: " + json.dumps(
+        {k: f"{v:.2e}" for k, v in sorted(worst.items(), key=lambda kv: -kv[1])[:8]}))
+
+
+def fisheye_toy_check(device):
+    """The toy fisheye step (`utils/testing.fisheye_toy`: apply2render,
+    lens, vignetting and shift trained), card against CPU (step 11)."""
+    import torch
+    from bags_tpu_torch.raster.render import RenderConfig
+    from bags_tpu_torch.train.calibrated import fisheye_train_step
+    from bags_tpu_torch.utils.testing import fisheye_toy
+
+    toy_step_check("toy fisheye step", fisheye_toy, lambda t, dev: fisheye_train_step(
+        t["state"], t["gt"], t["p_view"], 0, torch.zeros(3, device=dev),
+        t["setup"], RenderConfig(sh_degree=3), t["cfg"], t["schedules"], True,
+        True), 1, device)
 
 
 def fisheye_train_path(data):
@@ -1426,6 +1466,289 @@ def fisheye_checks(model, data, device):
                                                            bwd_err)
 
 
+# The cubemap phase (step 12): 8 cameras inside the Gaussian box of
+# `make_toy_scene`, near (0, 0, 6), so that all five faces of each see
+# content; focal 800 px, so that the forward face spans 90 degrees across
+# the 1600-pixel width. --preset cubemap samples the control grid every 8
+# pixels and masks a disc of radius 512.
+CUBE_FOCAL, CUBE_SCALE, CUBE_RADIUS = 800.0, 8, 512
+
+
+def cubemap_toy_check(device):
+    """The toy cubemap step (`utils/testing.cubemap_toy`: five renders sorted
+    by distance, the cubemap net's ray field, five warps; pose, FoVs and
+    the net trained), card against CPU, 5 launches of each kernel (step
+    12)."""
+    import torch
+    from bags_tpu_torch.raster.render import RenderConfig
+    from bags_tpu_torch.train.calibrated import cubemap_train_step
+    from bags_tpu_torch.utils.testing import cubemap_toy
+
+    toy_step_check("toy cubemap step", cubemap_toy, lambda t, dev: cubemap_train_step(
+        t["state"], t["gt"], 0, torch.zeros(3, device=dev), t["sub_q"][0],
+        t["sub_t"][0], t["setup"], RenderConfig(sh_degree=1), t["cfg"],
+        t["schedules"]), 5, device)
+
+
+def write_cubemap_data(model, device):
+    """The cubemap dataset `cube/` (step 12): the step-5 model's 1M centres
+    in points3D, 8 cameras of `utils/testing.cubemap_cameras` at 1600x1080,
+    focal CUBE_FOCAL, and in `images/` each camera's five faces (the plain
+    version's renders, sorted by distance) warped through a full-size
+    cubemap net fitted by `init_cubemap_net` on the card to the known lens
+    KNOWN_LENS, stitched by maximum intensity and masked to the disc of
+    radius CUBE_RADIUS. Returns (data path, pre-fit seconds, instances per
+    face and camera)."""
+    import numpy as np
+    import torch
+    from bags_tpu_torch.calib.distortion import init_cubemap_net
+    from bags_tpu_torch.calib.iresnet import init_iresnet_params
+    from bags_tpu_torch.core.camera import CameraParams, CameraStatic
+    from bags_tpu_torch.core.sh import sh_dc_to_rgb
+    from bags_tpu_torch.model.gaussians import load_ply
+    from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.train.calibrated import face_cameras, sub_camera_poses
+    from bags_tpu_torch.utils.testing import (KNOWN_LENS, cubemap_cameras,
+                                              write_cubemap_dataset)
+
+    g, alive = load_ply(os.path.join(model, "point_cloud", "iteration_30000",
+                                     "point_cloud.ply"), device=device)
+    net = init_iresnet_params(seed=7, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init_cubemap_net(net, KNOWN_LENS)
+    torch.cuda.synchronize()
+    prefit_s = time.perf_counter() - t0
+    print(f"init_cubemap_net (160,000 samples, 100 Adam steps, the 5x512 net) "
+          f"to {KNOWN_LENS}: {prefit_s:.2f} s")
+    static = CameraStatic(WIDTH, HEIGHT)
+    cams = cubemap_cameras(N_CAMS, 2 * np.arctan(WIDTH / (2 * CUBE_FOCAL)),
+                           2 * np.arctan(HEIGHT / (2 * CUBE_FOCAL)), device=device)
+
+    def render_faces(cam):
+        q, t = sub_camera_poses(CameraParams.stack([cam]))
+        faces, counts = [], []
+        for c in face_cameras(cam, q[0], t[0]):
+            rows, bins, tx, ty = frame(g, alive, c, static, 3, sort_by_distance=True)
+            c4, _ = composite_tiles_plain(rows, bins.tile_start, bins.tile_count,
+                                          tx, ty)
+            faces.append(to_image(c4, tx, ty, static))
+            counts.append(bins.n_instances)
+        return faces, counts
+
+    data = os.path.join(WORK, "cube")
+    with torch.no_grad():
+        counts = write_cubemap_dataset(
+            data, cams, WIDTH, HEIGHT, CUBE_FOCAL, g.xyz.cpu().numpy(),
+            sh_dc_to_rgb(g.sh_dc[:, 0]).cpu().numpy(), render_faces, net,
+            CUBE_RADIUS, CUBE_SCALE)
+    for i, c in enumerate(counts):
+        print(f"cubemap GT camera {i}: instances per face (forward, up, down, "
+              f"left, right) {c}")
+    check(all(min(c[1:]) > 0 for c in counts),
+          f"a side face renders nothing: {counts}")
+    return data, prefit_s, counts
+
+
+def cubemap_train_path(data):
+    """Slice 4's cubemap path: `cli.train --preset cubemap` at full width
+    (step 12), checkpoints after steps 1 and 30. Returns (model path,
+    forward launches, backward launches, summary)."""
+    import math
+
+    import numpy as np
+    import torch
+    from bags_tpu_torch.cli import train as train_cli
+    from bags_tpu_torch.raster import composite
+
+    model = os.path.join(WORK, "cube_model")
+    argv = ["-s", data, "-m", model, "--preset", "cubemap", "--init_type", "sfm",
+            "--iterations", str(TRAIN_ITERS), "--densify_from_iter", "10",
+            "--densification_interval", "10", "--densify_until_iter", "25",
+            "--test_iterations", str(TRAIN_ITERS),
+            "--save_iterations", str(TRAIN_ITERS),
+            "--checkpoint_iterations", "1", str(TRAIN_ITERS), "--device", "cuda",
+            "--densify_grad_threshold", "5e-8"]     # as in step 6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    summary = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    losses, steps = summary["losses"], summary["step_s"]
+    print(f"cubemap train CLI: {len(losses)} steps in {train_s:.1f} s, forward "
+          f"launches {fwd} (5 for each of {summary['eval_renders']} evaluation "
+          f"views among them), backward launches {bwd}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("cubemap train losses " + " ".join(f"{x:.5f}" for x in losses))
+    print("cubemap train step_ms " + " ".join(f"{1e3 * x:.1f}" for x in steps))
+    print(f"cubemap train densify: {summary['densify']}")
+    print("\n".join(summary["eval"]))
+    check(len(losses) == TRAIN_ITERS, f"{len(losses)} cubemap training steps")
+    check(bwd == 5 * TRAIN_ITERS,
+          f"{bwd} backward launches for {TRAIN_ITERS} cubemap steps")
+    check(fwd == 5 * (TRAIN_ITERS + summary["eval_renders"]),
+          f"{fwd} forward launches for {TRAIN_ITERS} cubemap steps and "
+          f"{summary['eval_renders']} evaluation views")
+    check(all(math.isfinite(x) for x in losses), "non-finite cubemap loss")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"cubemap loss did not fall: first 5 {first:.5f}, "
+                        f"last 5 {last:.5f}")
+    check(summary["eval"], "no cubemap evaluation lines")
+    ck = {it: np.load(os.path.join(model, f"chkpnt{it}.npz"))
+          for it in (1, TRAIN_ITERS)}
+    keys = [k for k in ck[TRAIN_ITERS].files if k.startswith("v2|.cubemap_net.")]
+    check(len(keys) == 3 * 5 * 5, f"the checkpoint's cubemap leaves: {len(keys)}")
+    check(int(ck[TRAIN_ITERS]["v2|.cubemap_opt.count"]) == TRAIN_ITERS,
+          "the cubemap net did not step every iteration")
+    moved = max(float(np.abs(ck[TRAIN_ITERS][k] - ck[1][k]).max()) for k in keys)
+    print(f"cubemap net: largest change of a parameter from step 1 to step "
+          f"{TRAIN_ITERS}: {moved:.3e}")
+    check(moved > 0, "the cubemap net's parameters did not change")
+    return model, fwd, bwd, summary
+
+
+def cubemap_restore_path(model, data):
+    """The render CLI restores the cubemap model and renders plain
+    perspective views of it, one forward launch a view (step 12). Returns
+    the forward launches."""
+    import math
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.raster import composite
+
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    summary = render_cli.main(["-m", model, "-s", data, "--device", "cuda"])
+    torch.cuda.synchronize()
+    fwd = composite.fwd_launches
+    psnrs = {k: v["psnr"] for k, v in summary.items()}
+    n_views = sum(len(v) for v in psnrs.values())
+    print(f"cubemap restore: {n_views} views in {time.perf_counter() - t0:.1f} "
+          f"s, PSNR {psnrs}, forward launches {fwd}")
+    check(sorted(psnrs) == ["test", "train"] and n_views == N_CAMS,
+          f"cubemap restore rendered {psnrs}")
+    check(fwd == n_views, f"{fwd} forward launches for {n_views} views")
+    check(all(math.isfinite(p) for v in psnrs.values() for p in v),
+          "non-finite cubemap PSNR after restore")
+    ren = np.asarray(Image.open(os.path.join(summary["test"]["dir"], "renders",
+                                             "00000.png")))
+    check(ren.shape == (HEIGHT, WIDTH, 3), f"cubemap render shape {ren.shape}")
+    return fwd
+
+
+def cubemap_checks(model, data, device):
+    """On the trained cubemap model (step 12): both kernels on train view
+    0's forward face and left face (sorted by distance) against their plain
+    versions at step 5's and step 7's full-width criteria, with their
+    times, bounds and instances, then the cubemap step split by stage.
+    Returns the forward's and the backward's numbers on those faces."""
+    import torch
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.tiles import composite_bwd_plain, composite_tiles_plain
+    from bags_tpu_torch.tools import stagebench
+    from bags_tpu_torch.train.calibrated import face_cameras
+    from bags_tpu_torch.utils.profiling import (bound, bwd_bytes, bwd_ops, fwd_bytes,
+                                                fwd_ops, pair_counts, timed)
+
+    _, scene, _, _, trainer = render_cli.restore_trained(model, data, -1, device)
+    base, static = trainer.base, trainer.setup.static
+    gt = scene.train_image(0)
+    cams = face_cameras(base.cams[0], trainer.sub_q[0], trainer.sub_t[0])
+    fwd_numbers, bwd_numbers = {}, {}
+    for name, cam in (("forward_face", cams[0]), ("left_face", cams[3])):
+        with torch.no_grad():
+            rows, bins, tx, ty = frame(base.g, base.alive, cam, static, 3,
+                                       sort_by_distance=True)
+        args = (rows, bins.tile_start, bins.tile_count, tx, ty)
+        label = f"cubemap train view 0 {name}"
+        with torch.no_grad():
+            fwd_err = fwd_agreement(label, composite.composite_fwd(*args),
+                                    composite_tiles_plain(*args))
+            fwd_ms = timed(lambda: composite.composite_fwd(*args), device, 20)
+            fwd_plain = timed(lambda: composite_tiles_plain(*args), device, 3)
+        bwd_args = loss_cotangents(args, static, gt)
+        counts = pair_counts(*args)
+        with torch.no_grad():
+            bwd_err = bwd_full_width_check(f"{label} backward", bwd_args)
+            bwd_ms = timed(lambda: composite.composite_bwd(*bwd_args), device, 20)
+            bwd_plain = timed(lambda: composite_bwd_plain(*bwd_args), device, 3)
+        fb = bound(fwd_bytes(bins.n_instances, tx * ty), fwd_ops(counts))
+        bb = bound(bwd_bytes(bins.n_instances, tx * ty), bwd_ops(counts))
+        print(f"{label} ({static.width}x{static.height}, sorted by distance): "
+              f"{bins.n_instances} "
+              f"instances, max tile {int(bins.tile_count.max())}; forward "
+              f"{fwd_ms:.4f} ms (plain {fwd_plain:.3f}, bound {fb[0]:.4f} "
+              f"{fb[1]}), backward {bwd_ms:.4f} ms (plain {bwd_plain:.3f}, "
+              f"bound {bb[0]:.4f} {bb[1]})")
+        for numbers, ms, plain_ms, bnd, err in (
+                (fwd_numbers, fwd_ms, fwd_plain, fb, fwd_err),
+                (bwd_numbers, bwd_ms, bwd_plain, bb, bwd_err)):
+            numbers.update({f"cubemap_{name}_ms": ms,
+                            f"cubemap_{name}_plain_ms": plain_ms,
+                            f"cubemap_{name}_bound_ms": bnd[0],
+                            f"cubemap_{name}_bound_by": bnd[1],
+                            f"cubemap_{name}_max_abs_err": err,
+                            f"cubemap_{name}_instances": bins.n_instances})
+    stagebench.cubemap_step_stages(trainer, gt, device,
+                                   os.path.join(WORK, "cube_trace"))
+    return fwd_numbers, bwd_numbers
+
+
+def jax_recovery_keys():
+    """The keys of the JAX package's `tools/lens_recovery.py` JSON line, read
+    from its source without importing it."""
+    import ast
+
+    with open(os.path.join(REPO, "tools", "lens_recovery.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "dict" \
+                and any(k.arg == "metric" for k in node.keywords):
+            return [k.arg for k in node.keywords]
+    raise RuntimeError("tools/lens_recovery.py: no JSON dict found")
+
+
+def recovery_path():
+    """Known-lens recovery on the card (step 13): the port's
+    `tools/lens_recovery.py` in-process with the JAX CPU test's pre-fit
+    length (600) and lens lr (3e-5), 500 iterations, the tool's defaults
+    otherwise (400x400, 20,000 Gaussians, 12 cameras). Checks the JAX tool's
+    keys, finite numbers and a flow error that falls. Returns the forward
+    and backward launches."""
+    import math
+
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import lens_recovery
+
+    lens_recovery.PREFIT_ITERS = 600
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    out = lens_recovery.main(["--iters", "500", "--report_every", "100",
+                              "--iresnet_lr", "3e-5", "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    print(f"lens recovery: {secs:.1f} s ({out['s_per_iter']} s an iteration), "
+          f"flow error {out['flow_err_init_px']} -> {out['flow_err_final_px']} px, "
+          f"forward launches {fwd}, backward launches {bwd}")
+    check(list(out) == jax_recovery_keys(), f"recovery keys {list(out)}")
+    numbers = [v for v in out.values() if isinstance(v, (int, float))]
+    check(all(math.isfinite(v) for v in numbers), f"non-finite recovery: {out}")
+    check(bwd == 500, f"{bwd} backward launches for 500 recovery steps")
+    check(out["flow_err_final_px"] < out["flow_err_init_px"],
+          f"the flow error did not fall: {out['flow_err_init_px']} -> "
+          f"{out['flow_err_final_px']} px")
+    return fwd, bwd
+
+
 def main():
     import torch
 
@@ -1523,6 +1846,7 @@ def main():
     fori_entry["launches"] = launches["kernablate_real"]["composite_fwd_fori"]
 
     # 11. slice 4's main path: fisheye lens calibration at full width
+    print(f"step 10 done at {time.perf_counter() - t_all:.1f} s")
     fisheye_toy_check(device)
     t0 = time.perf_counter()
     write_fisheye_gt(model, data, device)
@@ -1535,7 +1859,31 @@ def main():
     fish_fwd_view, fish_bwd_view = fisheye_checks(fish_model, data, device)
     fwd_entry.update(fish_fwd_view)
     bwd_entry.update(fish_bwd_view)
+    print(f"step 11 done at {time.perf_counter() - t_all:.1f} s")
 
+    # 12. slice 4's cubemap path at full width
+    t0 = time.perf_counter()
+    cubemap_toy_check(device)
+    cube_data, _, _ = write_cubemap_data(model, device)
+    print(f"wrote the cubemap dataset in {time.perf_counter() - t0:.1f} s")
+    cube_model, cube_fwd, cube_bwd, _ = cubemap_train_path(cube_data)
+    fwd_entry["launches_by_path"]["train_cli_cubemap"] = cube_fwd
+    bwd_entry["launches_by_path"]["train_cli_cubemap"] = cube_bwd
+    fwd_entry["launches_by_path"]["render_cli_cubemap"] = cubemap_restore_path(
+        cube_model, cube_data)
+    cube_fwd_faces, cube_bwd_faces = cubemap_checks(cube_model, cube_data, device)
+    fwd_entry.update(cube_fwd_faces)
+    bwd_entry.update(cube_bwd_faces)
+    print(f"step 12 took {time.perf_counter() - t0:.1f} s")
+
+    # 13. known-lens recovery
+    t0 = time.perf_counter()
+    rec_fwd, rec_bwd = recovery_path()
+    fwd_entry["launches_by_path"]["lens_recovery"] = rec_fwd
+    bwd_entry["launches_by_path"]["lens_recovery"] = rec_bwd
+    print(f"step 13 took {time.perf_counter() - t0:.1f} s")
+
+    # 14. the kernels line, then the device line
     print(f"total {time.perf_counter() - t_all:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, ablate_entry, fori_entry]}))

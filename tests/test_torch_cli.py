@@ -111,12 +111,12 @@ def test_cli_unported_paths_raise(tmp_path):
     _lookat_scene(root)
     from bags_tpu_torch.train.config import TrainConfig
 
-    for flag, slice_ in (("cubemap", "slice 4"), ("hybrid", "slice 5")):
+    for flag, slice_ in (("mcmc", "slice 5"), ("hybrid", "slice 5")):
         model = str(tmp_path / f"ckpt_{flag}")
         os.makedirs(model)
         open(os.path.join(model, "chkpnt100.npz"), "wb").close()
         cfg = TrainConfig()
-        setattr(cfg.calib, flag, True)
+        setattr(cfg.calib if flag == "hybrid" else cfg, flag, True)
         with open(os.path.join(model, "cfg.json"), "w") as f:
             f.write(cfg.to_json())
         with pytest.raises(NotImplementedError, match=slice_):

@@ -314,3 +314,32 @@ def test_fisheye_step_on_card_matches_cpu(cuda):
     for k, v in cpu.grads.items():
         torch.testing.assert_close(card.grads[k].detach().cpu(), v, atol=1e-5,
                                    rtol=1e-3, msg=k)
+
+
+def test_cubemap_step_on_card_matches_cpu(cuda):
+    """The toy cubemap step (`utils/testing.cubemap_toy`: five renders
+    sorted by distance, the cubemap net's ray field, five warps) through
+    both kernels against the plain versions on the CPU from the same state
+    and GT: loss and forward face within 2e-5, every gradient within atol
+    1e-5, rtol 1e-3; 5 forward and 5 backward launches."""
+    from bags_tpu_torch.train.calibrated import cubemap_train_step
+    from bags_tpu_torch.utils.testing import cubemap_toy
+
+    out, gt = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        t = cubemap_toy(dev, gt)
+        gt = t["gt"].cpu()
+        before = composite.fwd_launches, composite.bwd_launches
+        out[dev.type] = cubemap_train_step(
+            t["state"], t["gt"], 0, torch.zeros(3, device=dev), t["sub_q"][0],
+            t["sub_t"][0], t["setup"], RenderConfig(sh_degree=1), t["cfg"],
+            t["schedules"])
+    assert (composite.fwd_launches, composite.bwd_launches) == (
+        before[0] + 5, before[1] + 5)
+    cpu, card = out["cpu"], out["cuda"]
+    assert abs(float(card.loss) - float(cpu.loss)) <= 2e-5
+    torch.testing.assert_close(card.image.cpu(), cpu.image, atol=2e-5, rtol=0)
+    assert set(card.grads) == set(cpu.grads)
+    for k, v in cpu.grads.items():
+        torch.testing.assert_close(card.grads[k].detach().cpu(), v, atol=1e-5,
+                                   rtol=1e-3, msg=k)

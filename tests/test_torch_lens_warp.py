@@ -52,6 +52,48 @@ def test_grid_sample_values_and_gradients():
     assert float(np.abs(np.asarray(jv)[:, 0, 0]).max()) == 0.0
 
 
+def test_grid_sample_non_finite_matches_jax():
+    """Sample positions at inf, -inf and NaN (both coordinates, or x
+    alone), and a NaN cotangent at a finite sample whose taps lie outside
+    the image: the values and both gradients hold JAX's NaN pattern and,
+    elsewhere, its numbers to 1e-6, except as `grid_sample` states: the
+    x of the sample whose x alone is not finite gets a grid cotangent of 0
+    (JAX's is finite), and the finite sample's NaN cotangent does not reach
+    its clipped pixel (0, 10) (JAX's does)."""
+    rng = np.random.default_rng(8)
+    img = rng.random((3, 9, 11)).astype(np.float32)
+    grid = rng.uniform(-1.4, 1.4, (6, 7, 2)).astype(np.float32)
+    for i, xy in enumerate(((np.inf, np.inf), (-np.inf, np.nan),
+                            (np.nan, np.nan), (np.inf, 0.2))):
+        grid[1, i] = xy
+    grid[4, 5] = (1.3, -1.2)
+    cot = rng.normal(size=(3, 6, 7)).astype(np.float32)
+    cot[:, 4, 5] = np.nan
+    jv, jvjp = jax.vjp(jimage.grid_sample, jnp.asarray(img), jnp.asarray(grid))
+    jg_img, jg_grid = (np.array(x) for x in jvjp(jnp.asarray(cot)))
+    ti = torch.tensor(img, requires_grad=True)
+    tg = torch.tensor(grid, requires_grad=True)
+    tv = timage.grid_sample(ti, tg)
+    tv.backward(torch.as_tensor(cot))
+    assert tg.grad[1, 3, 0] == 0.0 and np.isfinite(jg_grid[1, 3, 0])
+    jg_grid[1, 3, 0] = 0.0
+    assert np.isnan(jg_img[:, 0, -1]).all()
+    assert torch.isfinite(ti.grad[:, 0, -1]).all()
+    jg_img[:, 0, -1] = ti.grad[:, 0, -1].numpy()
+
+    def same(got, want):
+        got = to_np(got)
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(np.nan_to_num(got), np.nan_to_num(want),
+                                   atol=1e-6)
+    same(tv.detach(), np.asarray(jv))
+    same(ti.grad, jg_img)
+    same(tg.grad, jg_grid)
+    assert np.isnan(np.asarray(jv)[:, 1, :4]).all()
+    assert np.isnan(jg_img[:, -1, -1]).all()   # the clipped taps of (1, 0)
+    assert not np.isnan(jg_img[:, 4, 4]).any()
+
+
 def test_resize_bilinear_upsamples_and_refuses_downsampling():
     rng = np.random.default_rng(6)
     x = rng.normal(size=(2, 5, 7)).astype(np.float32)
