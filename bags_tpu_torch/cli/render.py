@@ -14,8 +14,9 @@ on `--device cuda` (the default) or `--device cpu`. A fisheye model
 shift, and each view is rendered at the extended FoV and warped through
 the lens against the fisheye GT (`fish/images`), as training evaluates.
 A cubemap model (`--cubemap`) is restored with its cubemap net and renders
-plain perspective views of its Gaussians, as the JAX render CLI does. The
-hybrid models of a later slice raise `NotImplementedError`.
+plain perspective views of its Gaussians, as the JAX render CLI does. A
+hybrid model (`--hybrid`) is restored with its ASG features and specular
+MLP, and its specular colour joins every view, plain, fisheye or cubemap.
 """
 
 from __future__ import annotations
@@ -135,10 +136,14 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     trained = None if args.ply_only else restore_trained(
         args.model_path, args.source_path, args.iteration, device)
-    fisheye_eval = None
+    fisheye_eval = spec = None
     if trained is not None:
         cfg_t, scene, state, it, trainer = trained
         g, alive, align = state.g, state.alive, state.align
+        if state.spec is not None:       # detached: only the camera trains
+            from ..calib.specular import SpecularParams
+            spec = SpecularParams(*(t.detach() for t in
+                                    state.spec.named_tensors().values()))
         if cfg_t.calib.outside_rasterizer and not cfg_t.calib.cubemap:
             from ..train.calibrated import (fisheye_eval_view,
                                             make_fisheye_eval_fn)
@@ -169,8 +174,12 @@ def main(argv=None) -> dict:
         xyz, opacity, sh = g.xyz.detach(), g.opacity(alive), g.sh_coeffs()
 
     def render_cam(cam):
+        extra = None
+        if spec is not None:
+            from ..calib.specular import specular_extra_color
+            extra = specular_extra_color(spec, xyz, g.asg.detach(), cam, align)
         return render(xyz, scaling, quats, opacity, sh, cam, scene.static,
-                      cfg, bg=bg, align=align)
+                      cfg, bg=bg, align=align, extra_color=extra)
 
     test_cams = scene.test_cams
     opt_cam_path = os.path.join(args.model_path, "opt_test_cams.npz")

@@ -20,9 +20,13 @@ the cubemap mode for fields of view past 180 degrees: five renders a step
 (the camera and its +-90 degree sub-cameras, sorted by distance) warped
 through the cubemap net against the circular-masked `images/` GT, the net
 pre-fitted first unless `--no_init_iresnet` (the preset sets it); its
-evaluation stitches the five faces. The MCMC, hybrid, multi-GPU and
-batched-camera paths are later slices of the port and raise
-`NotImplementedError`.
+evaluation stitches the five faces. `--mcmc` (`--preset fisheye_mcmc`)
+replaces densification by MCMC relocation and growth at the densification
+interval and position noise every step; `--hybrid` adds the ASG specular
+colour to every mode's render (the plain evaluation leaves it out, as the
+JAX CLI does; the fisheye and cubemap evaluations include it). The
+multi-GPU and batched-camera paths, `--gui` and `--vis_pose` are later
+work of the port and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -38,8 +42,6 @@ import torch
 
 # Switches of paths this slice has not ported -> their ROADMAP.md item.
 UNPORTED = {
-    "mcmc": "Queue 1 #12, slice 5 (MCMC)",
-    "hybrid": "Queue 1 #12, slice 5 (hybrid specular)",
     "gui": "Queue 1 #13, slice 5 (network viewer)",
     "vis_pose": "Queue 1 #13, slice 5 (pose plots)",
 }
@@ -203,10 +205,6 @@ def _refuse(name: str):
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a configuration that takes a path this
     slice of the port does not have, naming its ROADMAP.md item."""
-    flags = {"mcmc": cfg.mcmc, "hybrid": cfg.calib.hybrid}
-    for name, value in flags.items():
-        if value:
-            _refuse(name)
     if cfg.mesh > 0:
         raise NotImplementedError("--mesh > 0 is not ported yet: ROADMAP.md "
                                   "Queue 1 #14, slice 5 (multi-GPU)")
@@ -261,6 +259,7 @@ def main(argv=None) -> dict:
     """Run the CLI. Returns {"losses": [...] and "step_s": [...] (host
     seconds of the iteration, its evaluation and saving left out) per
     iteration, "densify": [(it, cloned, split, pruned, alive_before,
+    alive_after)], "mcmc": [(it, relocated, added, alive_before,
     alive_after)], "eval": the evaluation lines, "eval_renders": the views
     evaluation rendered, "model_path": ..., "lens_prefit_s": the fisheye
     lens pre-fit's or the cubemap net's pre-fit's seconds, or None}."""
@@ -319,7 +318,7 @@ def main(argv=None) -> dict:
     logger = MetricsLogger(args.model_path)
     eval_file = os.path.join(args.model_path, "evaluation_results.txt")
     summary = {"losses": [], "step_s": [], "densify": trainer.densify_log,
-               "eval": [], "eval_renders": 0, "model_path": args.model_path,
+               "mcmc": trainer.mcmc_log, "eval": [], "eval_renders": 0, "model_path": args.model_path,
                "lens_prefit_s": getattr(trainer, "prefit_s", None)}
 
     def eval_view(split, cams, i):
@@ -334,6 +333,7 @@ def main(argv=None) -> dict:
             return img, gt
         st = trainer.base
         g = st.g
+        # no specular colour here, as in the JAX train CLI (train.py:361-366)
         out = render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
                      g.sh_coeffs(), cams[i], scene.static,
                      RenderConfig(sh_degree=trainer.active_sh_degree),
@@ -404,6 +404,9 @@ def main(argv=None) -> dict:
     for it, cloned, split, pruned, before, after in trainer.densify_log:
         print(f"[ITER {it}] densify: cloned {cloned}, split {split}, pruned "
               f"{pruned}, alive {before} -> {after}")
+    for it, relocated, added, before, after in trainer.mcmc_log:
+        print(f"[ITER {it}] mcmc: relocated {relocated}, added {added}, "
+              f"alive {before} -> {after}")
     print("\nTraining complete.")
     return summary
 

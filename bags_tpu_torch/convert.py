@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .calib.iresnet import IResNetParams
+from .calib.specular import SpecularParams
 from .calib.vignetting import VignettingParams
 from .core.camera import CameraParams
 from .model.densify import DensifyStats
@@ -24,8 +25,8 @@ from .model.gaussians import Gaussians
 from .utils.device import resolve_device
 
 
-def _fields(cls, d: Mapping[str, np.ndarray], dev, extra=()):
-    names = {f.name for f in dataclasses.fields(cls)}
+def _fields(cls, d: Mapping[str, np.ndarray], dev, extra=(), optional=()):
+    names = {f.name for f in dataclasses.fields(cls)} - (set(optional) - set(d))
     missing = names - set(d)
     unknown = set(d) - names - set(extra)
     if missing or unknown:
@@ -36,11 +37,11 @@ def _fields(cls, d: Mapping[str, np.ndarray], dev, extra=()):
 
 def gaussians_from_numpy(d: Mapping[str, np.ndarray], device=None
                          ) -> Tuple[Gaussians, torch.Tensor]:
-    """{xyz, sh_dc, sh_rest, scales_log, quats, opacity_raw, alive}
-    -> (Gaussians, alive). The specular `asg` features of `--hybrid`
-    models are not ported yet and are refused."""
+    """{xyz, sh_dc, sh_rest, scales_log, quats, opacity_raw, alive} and,
+    for a `--hybrid` model, its ASG features `asg` -> (Gaussians, alive)."""
     dev = resolve_device(device)
-    g = Gaussians(**_fields(Gaussians, d, dev, extra=("alive",)))
+    g = Gaussians(**_fields(Gaussians, d, dev, extra=("alive",),
+                            optional=("asg",)))
     return g, torch.as_tensor(np.array(d["alive"], bool), device=dev)
 
 
@@ -53,6 +54,14 @@ def densify_stats_from_numpy(d: Mapping[str, np.ndarray], device=None
                              ) -> DensifyStats:
     """{grad_accum, grad_accum_abs, denom, max_radii2d} -> DensifyStats."""
     return DensifyStats(**_fields(DensifyStats, d, resolve_device(device)))
+
+
+def specular_from_numpy(d: Mapping[str, np.ndarray], device=None
+                        ) -> SpecularParams:
+    """{feat_w, feat_b, w1, b1, w2, b2, w3, b3} in the JAX layout (weights
+    (in, out)) -> SpecularParams, each tensor requiring grad."""
+    return SpecularParams(**{k: t.requires_grad_(True) for k, t in _fields(
+        SpecularParams, d, resolve_device(device)).items()})
 
 
 def iresnet_from_numpy(d: Mapping[str, list], device=None) -> IResNetParams:

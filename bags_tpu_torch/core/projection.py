@@ -89,6 +89,15 @@ def _covariance_entries(sx, sy, sz, quats):
             dot3(m[1], m[1]), dot3(m[1], m[2]), dot3(m[2], m[2]))
 
 
+def build_covariance(scales: torch.Tensor, quats: torch.Tensor) -> torch.Tensor:
+    """Σ = (R S)(R S)^T as full (N, 3, 3) matrices."""
+    s00, s01, s02, s11, s12, s22 = _covariance_entries(
+        scales[..., 0], scales[..., 1], scales[..., 2], quats)
+    return torch.stack([torch.stack([s00, s01, s02], dim=-1),
+                        torch.stack([s01, s11, s12], dim=-1),
+                        torch.stack([s02, s12, s22], dim=-1)], dim=-2)
+
+
 def project_gaussians(
     xyz: torch.Tensor,          # (N, 3) world means
     scales: torch.Tensor,       # (N, 3) activated scales

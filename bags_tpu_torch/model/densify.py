@@ -72,11 +72,10 @@ def _rank_pair(sel: torch.Tensor, dead: torch.Tensor):
 
 
 def _copy_rows(g: Gaussians, src, dst, overrides: dict) -> None:
-    """Row src -> dst across every field, with per-field overrides (values
-    already in src order)."""
-    for f in dataclasses.fields(g):
-        arr = getattr(g, f.name)
-        arr[dst] = overrides[f.name] if f.name in overrides else arr[src]
+    """Row src -> dst across every field that is set (`asg` with --hybrid),
+    with per-field overrides (values already in src order)."""
+    for name, arr in g.fields().items():
+        arr[dst] = overrides[name] if name in overrides else arr[src]
 
 
 @torch.no_grad()

@@ -4,7 +4,9 @@ The six trainable fields with the reference activations (exp scales,
 sigmoid opacity, normalized quaternions), SfM-point initialization with
 knn-3 scales, and PLY import/export in the standard 3DGS layout. As in the
 JAX package, the population has a capacity and an `alive` mask carried
-beside the parameters.
+beside the parameters. `--hybrid` adds the per-Gaussian ASG specular
+features `asg` (C, 24), None otherwise; every function that walks the
+fields skips a None one.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..calib.specular import ASG_FEATURE
 from ..core import sh as sh_lib
 from ..utils.device import resolve_device
 
@@ -29,6 +32,12 @@ class Gaussians:
     scales_log: torch.Tensor   # (C, 3)
     quats: torch.Tensor        # (C, 4)
     opacity_raw: torch.Tensor  # (C,)
+    asg: Optional[torch.Tensor] = None  # (C, 24) with --hybrid, else None
+
+    def fields(self) -> dict:
+        """The fields that are set, by name, in declaration order."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
     @property
     def max_sh_degree(self) -> int:
@@ -42,6 +51,11 @@ class Gaussians:
 
     def sh_coeffs(self) -> torch.Tensor:
         return torch.cat([self.sh_dc, self.sh_rest], dim=1)  # (C, K, 3)
+
+    def with_asg(self) -> "Gaussians":
+        """The same Gaussians with zero ASG specular features (--hybrid)."""
+        return dataclasses.replace(self, asg=self.xyz.new_zeros(
+            (self.xyz.shape[0], ASG_FEATURE)))
 
 
 def inverse_sigmoid(x):

@@ -21,7 +21,9 @@ the functions `render()` calls; the profile CLI traces it.
 `render_step`'s, so that the two cannot drift apart.
 `train_step_stages` splits a training step of a trained model the same way,
 `fisheye_step_stages` a fisheye step and `cubemap_step_stages` a cubemap
-step (`chip_smoke.py` calls all three).
+step (`chip_smoke.py` calls all three). For a hybrid or MCMC state the
+first two add `hybrid_mcmc_stages`: the specular colour's forward and its
+backward alone, one `mcmc_step` and one `mcmc_noise_step`.
 """
 
 from __future__ import annotations
@@ -154,9 +156,13 @@ def train_step_stages(state, scene, cfg, device):
     """Where a training step of `state` on `scene`'s train view 0 goes, on
     the card: the stages of `train_step` run one by one with a synchronise
     after each, the backward kernel timed apart, then `train_step` itself
-    and the peak memory. Prints the stages (ms) and the step times."""
+    and the peak memory; for a hybrid or MCMC state the specular colour
+    and the regularisers are stages of their own, and `hybrid_mcmc_stages`
+    follows. Prints and returns the stages (ms), the step times and the
+    peak memory (GiB)."""
     from ..core.camera import CameraParams
-    from ..train.loop import train_step
+    from ..train.loop import (extra_color, mcmc_regularisers, step_specular,
+                              train_step, zero_spec_grads)
     from ..train.optim import CAMERA_FIELDS, camera_lrs, row_adam_update
 
     g, alive, cams = state.g, state.alive, state.cams
@@ -180,8 +186,12 @@ def train_step_stages(state, scene, cfg, device):
         cam = CameraParams(q_init=cams.q_init[idx], t_init=cams.t_init[idx], **row)
         probe = torch.zeros((state.capacity, 2), device=device, requires_grad=True)
         absp = torch.zeros_like(probe, requires_grad=True)
+        extra = extra_color(state, cam)
+        if extra is not None:
+            tick("specular")
         proj = project_gaussians(g.xyz, g.scaling(), g.quats, g.opacity(alive),
-                                 g.sh_coeffs(), cam, static, 0, align=state.align)
+                                 g.sh_coeffs(), cam, static, 0, align=state.align,
+                                 extra_color=extra)
         x2d, y2d = proj.x2d + probe[:, 0], proj.y2d + probe[:, 1]
         tick("projection_sh")
         tx, ty = tiles.tile_grid(static.width, static.height)
@@ -198,11 +208,16 @@ def train_step_stages(state, scene, cfg, device):
                                    static.width, static.height)
         loss = photometric_loss(img, gt, cfg.opt.lambda_dssim)
         tick("loss")
+        if cfg.mcmc:
+            loss = loss + mcmc_regularisers(g, alive, cfg)
+            tick("mcmc_regularisers")
         state.g_opt.zero_grad()
+        zero_spec_grads(state)
         loss.backward()
         tick("backward_all")
         state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
         state.g_opt.step()
+        step_specular(state)
         row_adam_update(cams, state.cam_opt, {f: row[f].grad for f in row}, idx,
                         camera_lrs(cfg.calib, state.step))
         tick("optimizer")
@@ -214,6 +229,7 @@ def train_step_stages(state, scene, cfg, device):
             color4.detach(), t_final.detach()), device, 10)
     stages["backward_kernel"] = bwd_ms
     stages["backward_rest"] = stages["backward_all"] - bwd_ms
+    stages.update(hybrid_mcmc_stages(state, cfg, cam, device))
 
     step_ms, peak = _step_ms_and_peak(
         lambda: train_step(state, gt, idx, bg, static, rcfg, cfg))
@@ -221,6 +237,43 @@ def train_step_stages(state, scene, cfg, device):
     print(f"train step: {bins.n_instances} instances, {int(alive.sum())} live of "
           f"{state.capacity}; step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
           + f"; peak memory {peak:.2f} GiB")
+    return {"stages_ms": stages, "step_ms": step_ms, "peak_gib": peak}
+
+
+def hybrid_mcmc_stages(state, cfg, cam, device) -> dict:
+    """The hybrid and MCMC stages of a TrainState `state` on the card, each
+    alone (ms): the specular colour seen from `cam` forward
+    (`specular_fwd_alone`, CUDA events, median of 5) and with its backward
+    to xyz, asg and the MLP (`specular_fwd_bwd_alone`; `specular_bwd_alone`
+    the difference) when hybrid; one `mcmc_step` (host clock to a
+    synchronise: it reads the counts) and `mcmc_noise_step` (median of 5)
+    with `--mcmc`. Both MCMC steps change the state, as in training."""
+    from ..train.loop import extra_color, mcmc_noise_step, mcmc_step
+
+    out = {}
+    if state.spec is not None:
+        leaves = [state.g.xyz, state.g.asg,
+                  *state.spec.named_tensors().values()]
+
+        def spec():
+            return extra_color(state, cam)
+
+        with torch.no_grad():
+            out["specular_fwd_alone"] = timed(spec, device, 5)
+        out["specular_fwd_bwd_alone"] = timed(lambda: torch.autograd.grad(
+            spec(), leaves, torch.ones((state.capacity, 3), device=device)),
+            device, 5)
+        out["specular_bwd_alone"] = (out["specular_fwd_bwd_alone"]
+                                     - out["specular_fwd_alone"])
+    if cfg.mcmc:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mcmc_step(state, cfg)
+        torch.cuda.synchronize()
+        out["mcmc_step"] = (time.perf_counter() - t0) * 1e3
+        out["mcmc_noise_step"] = timed(lambda: mcmc_noise_step(state, cfg),
+                                       device, 5)
+    return out
 
 
 def trace_calls(fn, trace_dir: str, reps: int = 1) -> dict:
@@ -300,9 +353,11 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str) -> dict:
     3 reps, the last kept); then, timed apart with CUDA events, the
     backward kernel, the lens flow (alone and with its backward), and its
     pieces with their backwards: the Newton inverse of the control points,
-    the upsampling of the control flow and the warp with the crop; a
-    profiler trace of one step (device-busy share, kernels by time); 5
-    whole steps (host clock) and the peak memory. Prints them and returns
+    the upsampling of the control flow and the warp with the crop, and
+    `hybrid_mcmc_stages` (with a "specular" stage in the step's split when
+    hybrid); a profiler trace of one step (device-busy share, kernels by
+    time); 5 whole steps (host clock) and the peak memory. Prints them and
+    returns
     {"stages_ms", "step_ms", "peak_gib", "instances", "trace"}."""
     from ..calib.distortion import compute_flow
     from ..calib.iresnet import iresnet_forward
@@ -379,6 +434,7 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str) -> dict:
         lambda: resize_bilinear(ctrl, setup.flow_hw), [ctrl]), device, 5)
     stages["warp_crop_fwd_bwd_alone"] = timed(lambda: with_grad(
         warp, [image, fl]), device, 5)
+    stages.update(hybrid_mcmc_stages(base, cfg, cam, device))
 
     summary = trace_calls(step, trace_dir)
     print_busy("fisheye step trace", summary)

@@ -60,7 +60,8 @@ from ..model.densify import update_stats
 from ..raster.render import RenderConfig, render
 from .checkpoint import PREFIX, copy_leaves, load_checkpoint, save_checkpoint
 from .config import TrainConfig
-from .loop import StepMetrics, Trainer, TrainState
+from .loop import (StepMetrics, Trainer, TrainState, extra_color,
+                   step_specular, zero_spec_grads)
 from .losses import l1_loss, photometric_loss, ssim
 from .optim import (CAMERA_FIELDS, AdamMoments, adam_moments_init,
                     adam_moments_step, camera_lrs, multistep_schedule,
@@ -244,12 +245,6 @@ def load_calib_checkpoint(path: str, cs: CalibState,
 # Fisheye train step
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass
-class CalibStepMetrics(StepMetrics):
-    image: torch.Tensor               # the warped render (or masked render)
-    grads: Dict[str, torch.Tensor]    # every gradient the step took
-
-
 def _proj_scale(cam: CameraParams) -> torch.Tensor:
     return torch.stack([1.0 / torch.tan(cam.fovx * 0.5),
                         1.0 / torch.tan(cam.fovy * 0.5)])
@@ -266,7 +261,7 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
                        cfg: TrainConfig, schedules, opt_lens: bool,
                        use_vignetting: bool,
                        timer: Optional[Callable[[str], None]] = None
-                       ) -> CalibStepMetrics:
+                       ) -> StepMetrics:
     """One fisheye step on camera `cam_idx` against `fish_gt` (3, H, W);
     updates `state` in place (`make_fisheye_train_step`, calibrated.py:206).
 
@@ -275,7 +270,9 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
     guard: a non-finite lens gradient zeroes every lens gradient and the
     moments still step, so the lens moves by its decayed first moment. The
     vignetting model steps with use_vignetting, the shift with
-    `--opt_shift`. timer(name), if given, is called after each stage."""
+    `--opt_shift`. A hybrid state's render adds the specular colour and its
+    MLP steps (`loop.step_specular`). timer(name), if given, is called
+    after each stage."""
     tick = timer or (lambda name: None)
     calib = cfg.calib
     b = state.base
@@ -295,10 +292,14 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
         p.grad = None
     for p in [state.vig.a_k, state.vig.beta_k, state.shift]:
         p.grad = None
+    zero_spec_grads(b)
 
+    extra = extra_color(b, cam)
+    if extra is not None:
+        tick("specular")
     out = render(g.xyz, g.scaling(), g.quats, g.opacity(b.alive),
                  g.sh_coeffs(), cam, static, rcfg, bg=bg, align=b.align,
-                 probe2d=probe, abs_probe=absp,
+                 probe2d=probe, abs_probe=absp, extra_color=extra,
                  shift_factors=state.shift if calib.opt_shift else None,
                  timer=tick)
     flow = dist_lib.compute_flow(state.lens, p_view, setup.grid_hw,
@@ -340,9 +341,9 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
     row_grads = {f: row[f].grad for f in CAMERA_FIELDS}
     row_adam_update(cams, b.cam_opt, row_grads, cam_idx,
                     camera_lrs(calib, b.step))
-    grads = {f".g.{f.name}": getattr(g, f.name).grad
-             for f in dataclasses.fields(g)}
+    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
     grads.update({f".cam.{f}": v for f, v in row_grads.items()})
+    grads.update(step_specular(b))
     if opt_lens:
         lens_grads = _grads_or_zeros(lens_named)
         grads.update({".lens" + k: v for k, v in lens_grads.items()})
@@ -368,7 +369,7 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
                                out.visibility)
     b.step += 1
     tick("optimizers")
-    return CalibStepMetrics(loss=loss.detach(), l1=loss.detach(),
+    return StepMetrics(loss=loss.detach(), l1=loss.detach(),
                             n_alive=b.alive.sum(), n_dropped=out.n_dropped,
                             image=image.detach(), grads=grads)
 
@@ -451,7 +452,7 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
                        sub_t: torch.Tensor, setup: CubemapSetup,
                        rcfg: RenderConfig, cfg: TrainConfig, schedules,
                        timer: Optional[Callable[[str], None]] = None
-                       ) -> CalibStepMetrics:
+                       ) -> StepMetrics:
     """One cubemap step on camera `cam_idx` against its GT (3, H, W), the
     dataset's perspective image; updates `state` in place
     (`make_cubemap_train_step`, calibrated.py:453).
@@ -464,8 +465,9 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     gt * circ * half_mask. The Gaussians take their Adam step, the camera
     row its row Adam step and the cubemap net its moments step on every
     step behind the NaN guard (a non-finite gradient zeroes them all; the
-    moments still step). timer(name), if given, is called after each
-    stage."""
+    moments still step). A hybrid state adds the specular colour seen from
+    the camera to all five renders (the faces share its centre) and steps
+    its MLP. timer(name), if given, is called after each stage."""
     tick = timer or (lambda name: None)
     b = state.base
     g, cams = b.g, b.cams
@@ -481,13 +483,16 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     for p in cub_named.values():
         p.requires_grad_(True)
         p.grad = None
+    zero_spec_grads(b)
 
     gauss = (g.xyz, g.scaling(), g.quats, g.opacity(b.alive), g.sh_coeffs())
+    extra = extra_color(b, cam)
     main_cam, *side_cams = face_cameras(cam, sub_q, sub_t)
     main = render(*gauss, main_cam, setup.static, rcfg, bg=bg, align=b.align,
-                  probe2d=probe, abs_probe=absp, timer=tick)
+                  probe2d=probe, abs_probe=absp, extra_color=extra, timer=tick)
     outs = [main] + [render(*gauss, c, setup.static, rcfg, bg=bg,
-                            align=b.align, timer=tick) for c in side_cams]
+                            align=b.align, extra_color=extra, timer=tick)
+                     for c in side_cams]
     faces, _ = cubemap_lib.render_cubemap_faces(
         lambda i: outs[i].render, state.cubemap_net, setup.K,
         setup.static.width, setup.static.height, setup.scale, setup.mask90,
@@ -511,9 +516,9 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     row_adam_update(cams, b.cam_opt, row_grads, cam_idx,
                     camera_lrs(cfg.calib, b.step))
     cub_grads = _grads_or_zeros(cub_named)
-    grads = {f".g.{f.name}": getattr(g, f.name).grad
-             for f in dataclasses.fields(g)}
+    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
     grads.update({f".cam.{f}": v for f, v in row_grads.items()})
+    grads.update(step_specular(b))
     grads.update({".cubemap_net" + k: v for k, v in cub_grads.items()})
     bad = torch.stack([~torch.isfinite(v).all()
                        for v in cub_grads.values()]).any()
@@ -526,7 +531,7 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
                                main.visibility)
     b.step += 1
     tick("optimizers")
-    return CalibStepMetrics(loss=loss.detach(), l1=loss.detach(),
+    return StepMetrics(loss=loss.detach(), l1=loss.detach(),
                             n_alive=b.alive.sum(),
                             n_dropped=sum(o.n_dropped for o in outs),
                             image=faces[0].detach(), grads=grads)
@@ -637,7 +642,7 @@ class CalibTrainer(Trainer):
         return opt_lens, it > calib.start_vignetting
 
     def step(self, idx: int, gt: torch.Tensor, it: Optional[int] = None
-             ) -> CalibStepMetrics:
+             ) -> StepMetrics:
         """One step of the trainer's mode on camera idx against its GT (the
         fisheye image, or the cubemap mode's perspective image) at
         iteration `it` of `run` (the next step's number when None)."""
@@ -685,7 +690,8 @@ def make_fisheye_eval_fn(trainer: CalibTrainer,
                          max_instances: Optional[int] = None):
     """Held-out evaluation of the fisheye mode: render at the extended FoV
     (no background, no alignment, the full SH degree, at most
-    `max_instances` instances), warp through the current lens field and
+    `max_instances` instances; a hybrid model's specular colour seen from
+    the aligned camera), warp through the current lens field and
     compare with the fisheye GT. Returns eval_one(state, cam, fish_gt) ->
     (image, gt, instances dropped), image and gt clipped / masked."""
     setup = trainer.setup
@@ -699,7 +705,8 @@ def make_fisheye_eval_fn(trainer: CalibTrainer,
         g = state.base.g
         out = render(g.xyz, g.scaling(), g.quats, g.opacity(state.base.alive),
                      g.sh_coeffs(), cam, static, rcfg,
-                     bg=torch.zeros(3, device=g.xyz.device))
+                     bg=torch.zeros(3, device=g.xyz.device),
+                     extra_color=extra_color(state.base, cam))
         if not apply2gt:
             warped, mask, _ = dist_lib.apply_distortion(
                 state.lens, trainer.p_view, setup.grid_hw, out.render,
@@ -733,7 +740,8 @@ def max_intensity_stitch(faces: List[torch.Tensor]) -> torch.Tensor:
 def make_cubemap_eval_fn(trainer: CalibTrainer):
     """Held-out evaluation of the cubemap mode: the five faces rendered at
     the full SH degree (sorted by distance, no background, the trainer's
-    instance budget), warped through the current cubemap net, stitched by
+    instance budget; a hybrid model's specular colour seen from the
+    camera on all five), warped through the current cubemap net, stitched by
     `max_intensity_stitch` and circular-masked, against the
     circular-masked GT. Returns eval_one(state, cam, gt, sub_q, sub_t) ->
     (image clipped to [0, 1], gt, instances dropped)."""
@@ -749,7 +757,9 @@ def make_cubemap_eval_fn(trainer: CalibTrainer):
         gauss = (g.xyz, g.scaling(), g.quats, g.opacity(b.alive),
                  g.sh_coeffs())
         bg = torch.zeros(3, device=g.xyz.device)
-        outs = [render(*gauss, c, setup.static, rcfg, bg=bg, align=b.align)
+        extra = extra_color(b, cam)
+        outs = [render(*gauss, c, setup.static, rcfg, bg=bg, align=b.align,
+                       extra_color=extra)
                 for c in face_cameras(cam, sub_q, sub_t)]
         faces, _ = cubemap_lib.render_cubemap_faces(
             lambda i: outs[i].render, state.cubemap_net, setup.K,

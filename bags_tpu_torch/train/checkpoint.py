@@ -3,11 +3,15 @@
 
 One `chkpnt{it}.npz` holds every leaf by name. The leaves the JAX package
 also has use its names (format v2, `"v2|" + jax.tree_util.keystr(path)`):
-`.g.<field>`, `.alive`, `.cams.<field>`, `.align.quaternion`,
-`.align.log_scale`, `.stats.<field>` and `.step`, so either package reads
-the other's model, cameras and statistics. The optimizer states and the
-split-noise generator are the port's own (`"torch|..."` names); the JAX
-package's optimizer leaves are ignored on load.
+`.g.<field>` (`.g.asg` with `--hybrid`), `.alive`, `.cams.<field>`,
+`.align.quaternion`, `.align.log_scale`, `.stats.<field>` and `.step`, so
+either package reads the other's model, cameras and statistics. A hybrid
+state adds its specular MLP (`.spec.feat_w`, ...) and its Adam state, which
+has optax's layout, under optax's names (`.spec_opt[0].count`,
+`.spec_opt[0].mu.feat_w`, `.spec_opt[0].nu.feat_w`, ...,
+`.spec_opt[1].count`, the schedule's count). The other optimizer states and
+the generator are the port's own (`"torch|..."` names); the JAX package's
+are ignored on load.
 
 A calibrated state (`train/calibrated.py`) writes its base state under
 `.base` (`.base.g.xyz`, ...) and its own leaves beside it.
@@ -24,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .optim import CAMERA_FIELDS, GAUSSIAN_GROUPS
+from .optim import CAMERA_FIELDS, gaussian_groups
 from .loop import TrainState
 
 PREFIX = "v2|"
@@ -37,8 +41,7 @@ def _host(x: torch.Tensor) -> np.ndarray:
 
 def _model_leaves(state: TrainState) -> dict:
     """The leaves named as the JAX package names them, as live tensors."""
-    out = {f".g.{f.name}": getattr(state.g, f.name)
-           for f in dataclasses.fields(state.g)}
+    out = {f".g.{k}": t for k, t in state.g.fields().items()}
     out[".alive"] = state.alive
     out.update({f".cams.{f.name}": getattr(state.cams, f.name)
                 for f in dataclasses.fields(state.cams)})
@@ -46,6 +49,19 @@ def _model_leaves(state: TrainState) -> dict:
     out[".align.log_scale"] = state.align.log_scale
     out.update({f".stats.{f.name}": getattr(state.stats, f.name)
                 for f in dataclasses.fields(state.stats)})
+    if state.spec is not None:
+        out.update({".spec" + k: t
+                    for k, t in state.spec.named_tensors().items()})
+    return out
+
+
+def _spec_opt_leaves(state: TrainState) -> dict:
+    """The specular Adam moments under optax's names (no counts)."""
+    if state.spec_opt is None:
+        return {}
+    st = state.spec_opt
+    out = {f".spec_opt[0].mu{k}": v for k, v in st.mu.items()}
+    out.update({f".spec_opt[0].nu{k}": v for k, v in st.nu.items()})
     return out
 
 
@@ -59,7 +75,8 @@ def _adam_leaves(prefix: str, opt: torch.optim.Optimizer, names) -> dict:
 
 
 def _optimizer_leaves(state: TrainState) -> dict:
-    out = _adam_leaves("g_opt", state.g_opt, [n for n, _ in GAUSSIAN_GROUPS])
+    out = _adam_leaves("g_opt", state.g_opt,
+                       [n for n, _ in gaussian_groups(state.g)])
     out.update(_adam_leaves("align_opt", state.align_opt, ["align"]))
     for f in CAMERA_FIELDS:
         out[f"cam_opt.mu.{f}"] = state.cam_opt.mu[f]
@@ -76,6 +93,12 @@ def save_checkpoint(path: str, state: TrainState, pre: str = "",
     arrays = {PREFIX + pre + k: _host(v)
               for k, v in _model_leaves(state).items()}
     arrays[PREFIX + pre + ".step"] = np.asarray(state.step, np.int32)
+    arrays.update({PREFIX + pre + k: _host(v)
+                   for k, v in _spec_opt_leaves(state).items()})
+    if state.spec_opt is not None:
+        for i in (0, 1):
+            arrays[f"{PREFIX}{pre}.spec_opt[{i}].count"] = np.asarray(
+                state.spec_opt.count, np.int32)
     arrays.update({PORT + k: _host(v)
                    for k, v in _optimizer_leaves(state).items()})
     arrays.update(extra or {})
@@ -121,21 +144,25 @@ def copy_leaves(data, path: str, leaves: dict) -> None:
 def load_checkpoint(path: str, state: TrainState,
                     with_optimizer: bool = True, pre: str = "") -> TrainState:
     """Restore `state` in place from `path` and return it. The model,
-    camera, alignment and statistics leaves must all be present under their
-    JAX names (under `pre`), with the template's shapes.
-    `with_optimizer=False` (for rendering) restores only those, so a
-    checkpoint the JAX package wrote loads too."""
+    camera, alignment and statistics leaves, and a hybrid state's specular
+    MLP and its Adam state, must all be present under their JAX names
+    (under `pre`), with the template's shapes: a hybrid checkpoint loads
+    into a hybrid template. `with_optimizer=False` (for rendering)
+    restores only those, so a checkpoint the JAX package wrote loads too."""
     data = np.load(path)
-    copy_leaves(data, path, {pre + k: v
-                             for k, v in _model_leaves(state).items()})
+    copy_leaves(data, path, {pre + k: v for k, v in
+                             {**_model_leaves(state),
+                              **_spec_opt_leaves(state)}.items()})
     state.step = int(data[PREFIX + pre + ".step"])
+    if state.spec_opt is not None:
+        state.spec_opt.count = int(data[f"{PREFIX}{pre}.spec_opt[0].count"])
     if not with_optimizer:
         return state
     if not any(f.startswith(PORT) for f in data.files):
         raise ValueError(f"checkpoint {path} holds no optimizer state of "
                          "this package (written by the JAX package?)")
-    _restore_adam("g_opt", state.g_opt, [n for n, _ in GAUSSIAN_GROUPS],
-                  data, path)
+    _restore_adam("g_opt", state.g_opt,
+                  [n for n, _ in gaussian_groups(state.g)], data, path)
     _restore_adam("align_opt", state.align_opt, ["align"], data, path)
     for f in CAMERA_FIELDS:
         state.cam_opt.mu[f].copy_(torch.as_tensor(data[f"{PORT}cam_opt.mu.{f}"]))

@@ -7,10 +7,16 @@ backward kernel) to the Gaussians, the camera row's dq / dt / FoV and the
 global alignment, steps the six-group Adam and the camera's row Adam (and
 the alignment Adam with `--opt_global_alignment`), and accumulates the
 densification statistics from the `probe2d` and `abs_probe` gradients.
-`Trainer.run` adds the SH-degree ramp every 1000 iterations, densify and
-prune inside (densify_from_iter, densify_until_iter), the opacity reset, a
-camera stack drawn from `np.random.default_rng(seed).permutation` (so both
-packages visit cameras in the same order) and a 1-deep GT prefetch thread.
+With `--hybrid` the render adds each Gaussian's specular colour
+(`calib/specular.py`) and the specular MLP takes its own Adam step; with
+`--mcmc` the loss adds the opacity and scale regularisers (means over the
+live count). `Trainer.run` adds the SH-degree ramp every 1000 iterations,
+densify and prune inside (densify_from_iter, densify_until_iter) and the
+opacity reset, or with `--mcmc` the relocation step (`mcmc_step`) at the
+densification interval and position noise (`mcmc_noise_step`) every step,
+a camera stack drawn from `np.random.default_rng(seed).permutation` (so
+both packages visit cameras in the same order) and a 1-deep GT prefetch
+thread.
 
 The population keeps the JAX package's fixed capacity and `alive` mask; the
 instance count of each view is dynamic, so there is no instance budget and
@@ -21,21 +27,25 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..calib.specular import (SpecularParams, init_specular_params,
+                              specular_extra_color)
 from ..core.camera import CameraParams, CameraStatic, GlobalAlignment
 from ..model.densify import (DensifyResult, DensifyStats, densify_and_prune,
                              reset_opacity, update_stats, zero_moments_at)
+from ..model import mcmc
 from ..model.gaussians import Gaussians
 from ..raster.render import RenderConfig, render
 from .config import TrainConfig
 from .losses import photometric_loss
-from .optim import (CAMERA_FIELDS, RowAdamState, camera_lrs,
+from .optim import (CAMERA_FIELDS, AdamMoments, RowAdamState,
+                    adam_moments_init, adam_moments_step, camera_lrs,
                     make_alignment_optimizer, make_gaussian_optimizer,
-                    row_adam_init, row_adam_update)
+                    row_adam_init, row_adam_update, specular_schedule)
 
 
 @dataclasses.dataclass
@@ -50,7 +60,11 @@ class TrainState:
     align_opt: torch.optim.Adam
     stats: DensifyStats
     step: int
-    gen: torch.Generator              # split offsets
+    gen: torch.Generator              # split offsets, MCMC draws and noise
+    # --hybrid: the specular MLP, its Adam moments and lr schedule
+    spec: Optional[SpecularParams] = None
+    spec_opt: Optional[AdamMoments] = None
+    spec_sched: Optional[Callable[[int], float]] = None
 
     @property
     def capacity(self) -> int:
@@ -63,6 +77,8 @@ class StepMetrics:
     l1: torch.Tensor
     n_alive: torch.Tensor
     n_dropped: int
+    image: torch.Tensor               # the image the loss compared
+    grads: Dict[str, torch.Tensor]    # every gradient the step took
 
 
 def init_train_state(g: Gaussians, alive: torch.Tensor, cams: CameraParams,
@@ -71,9 +87,13 @@ def init_train_state(g: Gaussians, alive: torch.Tensor, cams: CameraParams,
     """Make `g`'s tensors the optimizer's leaves (in place: the state owns
     them from here on) and build every optimizer state. The cameras are
     copied, so that the caller's (the dataset's initial poses) stay as they
-    are while the state's are optimised in place."""
-    for f in dataclasses.fields(g):
-        getattr(g, f.name).requires_grad_(True)
+    are while the state's are optimised in place. With `--hybrid`, `g`
+    gains zero ASG features (unless it has them) and the state the
+    specular MLP of `init_specular_params(seed)`."""
+    if cfg.calib.hybrid and g.asg is None:
+        g = g.with_asg()
+    for t in g.fields().values():
+        t.requires_grad_(True)
     cams = CameraParams(**{f.name: getattr(cams, f.name).detach().clone()
                            for f in dataclasses.fields(cams)})
     device = g.xyz.device
@@ -83,18 +103,67 @@ def init_train_state(g: Gaussians, alive: torch.Tensor, cams: CameraParams,
     g_opt, xyz_sched = make_gaussian_optimizer(g, cfg.opt, spatial_lr_scale)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    spec = spec_opt = spec_sched = None
+    if cfg.calib.hybrid:
+        spec = init_specular_params(seed, device)
+        spec_opt = adam_moments_init(spec.named_tensors())
+        spec_sched = specular_schedule(cfg.opt)
     return TrainState(
         g=g, alive=alive, g_opt=g_opt, xyz_sched=xyz_sched, cams=cams,
         cam_opt=row_adam_init(cams), align=align,
         align_opt=make_alignment_optimizer(align, cfg.calib),
-        stats=DensifyStats.zeros(alive.shape[0], device), step=0, gen=gen)
+        stats=DensifyStats.zeros(alive.shape[0], device), step=0, gen=gen,
+        spec=spec, spec_opt=spec_opt, spec_sched=spec_sched)
+
+
+def extra_color(state: TrainState, cam: CameraParams) -> Optional[torch.Tensor]:
+    """The specular colour offsets (C, 3) seen from `cam` (with the state's
+    alignment) when the state is hybrid, else None."""
+    if state.spec is None:
+        return None
+    return specular_extra_color(state.spec, state.g.xyz, state.g.asg, cam,
+                                state.align)
+
+
+def zero_spec_grads(state: TrainState) -> None:
+    if state.spec is not None:
+        for p in state.spec.named_tensors().values():
+            p.grad = None
+
+
+def step_specular(state: TrainState) -> dict:
+    """The specular MLP's Adam step from its gradients (zeros where it has
+    none) at the lr of its update count, as optax's schedule takes its own
+    count. Returns the gradients by their `.spec.` names, {} when the state
+    is not hybrid."""
+    if state.spec is None:
+        return {}
+    named = state.spec.named_tensors()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in named.items()}
+    with torch.no_grad():
+        adam_moments_step(named, grads, state.spec_opt,
+                          state.spec_sched(state.spec_opt.count))
+    return {".spec" + k: v for k, v in grads.items()}
+
+
+def mcmc_regularisers(g: Gaussians, alive: torch.Tensor,
+                      cfg: TrainConfig) -> torch.Tensor:
+    """opacity_reg mean|o| + scale_reg mean|s| over the live Gaussians (the
+    reference's means over its actual Gaussians, not the capacity)."""
+    n_alive = torch.clamp(alive.sum(), min=1).to(g.opacity_raw.dtype)
+    reg = cfg.opt.opacity_reg * torch.sum(torch.abs(g.opacity(alive))) / n_alive
+    return reg + cfg.opt.scale_reg * torch.sum(torch.abs(
+        g.scaling() * alive[:, None])) / (3.0 * n_alive)
 
 
 def train_step(state: TrainState, gt: torch.Tensor, cam_idx: int,
                bg: torch.Tensor, static: CameraStatic, rcfg: RenderConfig,
                cfg: TrainConfig) -> StepMetrics:
     """One training step on camera `cam_idx` against `gt` (3, H, W); updates
-    `state` in place (`make_train_step`, loop.py:148-270)."""
+    `state` in place (`make_train_step`, loop.py:148-270). Returns the
+    metrics with every gradient the step took (`grads`, by the JAX
+    package's names)."""
     g, cams = state.g, state.cams
     row = {f: getattr(cams, f)[cam_idx].detach().clone().requires_grad_(True)
            for f in CAMERA_FIELDS}
@@ -105,19 +174,27 @@ def train_step(state: TrainState, gt: torch.Tensor, cam_idx: int,
     absp = torch.zeros_like(probe, requires_grad=True)
     out = render(g.xyz, g.scaling(), g.quats, g.opacity(state.alive),
                  g.sh_coeffs(), cam, static, rcfg, bg=bg, align=state.align,
-                 probe2d=probe, abs_probe=absp)
+                 probe2d=probe, abs_probe=absp,
+                 extra_color=extra_color(state, cam))
     loss = photometric_loss(out.render, gt, cfg.opt.lambda_dssim)
+    if cfg.mcmc:
+        loss = loss + mcmc_regularisers(g, state.alive, cfg)
     state.g_opt.zero_grad()
     state.align_opt.zero_grad()
+    zero_spec_grads(state)
     loss.backward()
 
     # Gaussians: the xyz lr follows the global step, as optax's schedule
     # follows its update count.
     state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
     state.g_opt.step()
+    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
+    grads.update(step_specular(state))
     # camera: only the sampled row moves
-    row_adam_update(cams, state.cam_opt, {f: row[f].grad for f in row},
-                    cam_idx, camera_lrs(cfg.calib, state.step))
+    row_grads = {f: row[f].grad for f in row}
+    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
+    row_adam_update(cams, state.cam_opt, row_grads, cam_idx,
+                    camera_lrs(cfg.calib, state.step))
     # global alignment: opt-in (the reference never steps it)
     if cfg.calib.opt_global_alignment:
         state.align_opt.step()
@@ -128,7 +205,8 @@ def train_step(state: TrainState, gt: torch.Tensor, cam_idx: int,
         l1 = torch.mean(torch.abs(out.render - gt))
     state.step += 1
     return StepMetrics(loss=loss.detach(), l1=l1, n_alive=state.alive.sum(),
-                       n_dropped=out.n_dropped)
+                       n_dropped=out.n_dropped, image=out.render.detach(),
+                       grads=grads)
 
 
 def densify_step(state: TrainState, cfg: TrainConfig, scene_extent: float,
@@ -145,6 +223,34 @@ def densify_step(state: TrainState, cfg: TrainConfig, scene_extent: float,
     state.alive = res.alive
     state.stats = DensifyStats.zeros(state.capacity, state.alive.device)
     return res
+
+
+def mcmc_step(state: TrainState, cfg: TrainConfig):
+    """Relocate the dead Gaussians, grow toward cap_max (`--cap_max`, else
+    the capacity), then zero the Adam moments at both reset masks
+    (`make_mcmc_step`, loop.py:273-290). Returns (n_relocated, n_added)."""
+    cap = cfg.model.cap_max if cfg.model.cap_max > 0 else None
+    r1 = mcmc.relocate_dead(state.g, state.alive, state.gen,
+                            min_opacity=cfg.opacity_threshold)
+    r2 = mcmc.add_new_gaussians(state.g, r1.alive, state.gen, cap_max=cap)
+    zero_moments_at(state.g_opt, r1.reset_mask | r2.reset_mask)
+    state.alive = r2.alive
+    return r1.n_relocated, r2.n_relocated
+
+
+@torch.no_grad()
+def mcmc_noise_step(state: TrainState, cfg: TrainConfig,
+                    eps: Optional[torch.Tensor] = None) -> None:
+    """SGLD position noise after the optimizer step, at the xyz lr of the
+    step count after its increment (`make_mcmc_noise_step`,
+    loop.py:293-316). eps: the standard normal draws (C, 3), by default
+    drawn from the state's generator."""
+    if eps is None:
+        eps = torch.randn(state.g.xyz.shape, generator=state.gen,
+                          device=state.gen.device)
+    state.g.xyz.copy_(mcmc.position_noise(
+        state.g, state.alive, eps, state.xyz_sched(state.step),
+        cfg.opt.noise_lr))
 
 
 @torch.no_grad()
@@ -182,6 +288,8 @@ class Trainer:
         self._io: Optional[concurrent.futures.ThreadPoolExecutor] = None
         self._prefetched = None
         self.densify_log: list[tuple] = []
+        # (it, n_relocated, n_added, alive_before, alive_after) with --mcmc
+        self.mcmc_log: list[tuple] = []
 
     def close(self) -> None:
         if self._io is not None:
@@ -255,7 +363,18 @@ class Trainer:
             idx = self._next_camera()
             metrics = self.step(idx, self._fetch_gt(idx), it)
 
-            if it < opt.densify_until_iter:
+            if self.cfg.mcmc:
+                # MCMC cadence (train.py:363-372,434-441): relocation at the
+                # densification interval, position noise every step; no
+                # densify, no opacity reset
+                if opt.densify_from_iter < it < opt.densify_until_iter and \
+                        it % opt.densification_interval == 0:
+                    before = int(self.base.alive.sum())
+                    n_rel, n_add = mcmc_step(self.base, self.cfg)
+                    self.mcmc_log.append((it, n_rel, n_add, before,
+                                          int(self.base.alive.sum())))
+                mcmc_noise_step(self.base, self.cfg)
+            elif it < opt.densify_until_iter:
                 # densification cadence (train.py:374-389)
                 if it > opt.densify_from_iter and \
                         it % opt.densification_interval == 0:
@@ -276,4 +395,7 @@ class Trainer:
                                 int(metrics.n_alive)))
             if callback is not None:
                 callback(it, self.state, metrics)
+            # the metrics hold the step's gradients: let them go before the
+            # next step's backward allocates its own
+            metrics = None
         return history

@@ -4,7 +4,11 @@
   * The Gaussians: one `torch.optim.Adam` with six parameter groups, betas
     0.9 / 0.999, eps 1e-15: xyz with the exponential schedule (set each
     step from the global iteration), f_dc 2.5e-3, f_rest / 20, opacity
-    5e-2, scaling 5e-3, rotation 1e-3.
+    5e-2, scaling 5e-3, rotation 1e-3, and with `--hybrid` a seventh,
+    the ASG features at feature_lr.
+  * The specular MLP (`--hybrid`): optax-ordered Adam moments
+    (`AdamMoments`) at the linear-noise schedule of its own update count,
+    feature_lr -> feature_lr / 20 over specular_lr_max_steps.
   * The cameras: one Adam state per camera row with its own step count;
     only the sampled row moves, and its learning rates follow MultiStepLR
     counted in GLOBAL iterations (the reference steps its schedulers once
@@ -35,6 +39,7 @@ BETAS = (0.9, 0.999)
 GAUSSIAN_GROUPS = (("xyz", "xyz"), ("f_dc", "sh_dc"), ("f_rest", "sh_rest"),
                    ("opacity", "opacity_raw"), ("scaling", "scales_log"),
                    ("rotation", "quats"))
+ASG_GROUP = ("asg", "asg")        # the seventh group, with --hybrid
 # Learnable camera fields; q_init / t_init are frozen.
 CAMERA_FIELDS = ("dq", "dt", "fovx", "fovy")
 
@@ -67,20 +72,46 @@ def multistep_schedule(base_lr: float, milestones: Sequence[int], gamma: float):
     return schedule
 
 
+def linear_noise_schedule(lr_init: float, lr_final: float, max_steps: int):
+    """The reference's `get_linear_noise_func` as the specular MLP uses it:
+    LINEAR interpolation (its warm-up delay is off there)."""
+
+    def schedule(step) -> float:
+        t = min(max(step / max_steps, 0.0), 1.0)
+        return lr_init * (1 - t) + lr_final * t
+
+    return schedule
+
+
+def specular_schedule(opt: OptimizationConfig):
+    """The specular MLP's lr at its update count (`make_specular_optimizer`,
+    bags_tpu/train/optim.py:112-120, whose lr_delay_steps of 0 leaves no
+    delay)."""
+    return linear_noise_schedule(opt.feature_lr, opt.feature_lr / 20.0,
+                                 opt.specular_lr_max_steps)
+
+
+def gaussian_groups(g: Gaussians):
+    """(Adam group name, Gaussians field) of every group of `g`, in the JAX
+    package's label order: six, and the ASG group when g.asg is set."""
+    return GAUSSIAN_GROUPS + ((ASG_GROUP,) if g.asg is not None else ())
+
+
 def make_gaussian_optimizer(g: Gaussians, opt: OptimizationConfig,
                             spatial_lr_scale: float):
-    """Six-group Adam over the Gaussians' leaf tensors. Returns the
-    optimizer and the xyz schedule, whose value the caller sets as the xyz
-    group's lr before each step."""
+    """Adam over the Gaussians' leaf tensors, a group a field
+    (`gaussian_groups`). Returns the optimizer and the xyz schedule, whose
+    value the caller sets as the xyz group's lr before each step."""
     xyz_sched = expon_lr_schedule(
         opt.position_lr_init * spatial_lr_scale,
         opt.position_lr_final * spatial_lr_scale,
         opt.position_lr_max_steps, lr_delay_mult=opt.position_lr_delay_mult)
     lrs = {"xyz": xyz_sched(0), "f_dc": opt.feature_lr,
            "f_rest": opt.feature_lr / 20.0, "opacity": opt.opacity_lr,
-           "scaling": opt.scaling_lr, "rotation": opt.rotation_lr}
+           "scaling": opt.scaling_lr, "rotation": opt.rotation_lr,
+           "asg": opt.feature_lr}
     groups = [{"params": [getattr(g, field)], "lr": lrs[name], "name": name}
-              for name, field in GAUSSIAN_GROUPS]
+              for name, field in gaussian_groups(g)]
     return torch.optim.Adam(groups, betas=BETAS, eps=ADAM_EPS), xyz_sched
 
 

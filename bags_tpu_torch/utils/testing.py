@@ -133,13 +133,14 @@ def known_lens_fisheye(image: torch.Tensor, setup, p_view: torch.Tensor,
 KNOWN_LENS = (-0.12, 0.02, 0.0, 0.0)   # tools/lens_recovery.py's true lens
 
 
-def fisheye_toy(device, gt: torch.Tensor = None) -> dict:
+def fisheye_toy(device, gt: torch.Tensor = None, hybrid: bool = False) -> dict:
     """A toy fisheye training setup (apply2render; lens, vignetting and the
     pupil shift trained): the 700 SH-3 Gaussians of the 64x48 toy scene,
     nudged off their true positions, two cameras at `--preset fisheye`'s
     extended FoV, a 2-block lens net of width 32 (weights x 0.2), and the
     fisheye GT of camera 1 through the known lens KNOWN_LENS unless `gt` is
-    given. Returns dict(state, schedules, cfg, setup, p_view, gt)."""
+    given; `hybrid` adds the specular colour (`toy_asg` features).
+    Returns dict(state, schedules, cfg, setup, p_view, gt)."""
     from ..raster.render import RenderConfig, render
     from ..train import calibrated
     from ..train.config import TrainConfig
@@ -153,6 +154,7 @@ def fisheye_toy(device, gt: torch.Tensor = None) -> dict:
     c.opt_cam = c.opt_intrinsic = c.opt_distortion = c.outside_rasterizer = True
     c.opt_shift, c.start_vignetting, c.iresnet_lr = True, 0, 1e-4
     c.flow_scale, c.control_point_sample_scale = (2.0, 2.0), 8
+    c.hybrid = hybrid
     sc = make_toy_scene(n=700, width=w, height=h, sh_degree=3, seed=0,
                         device=dev)
     setup = calibrated.make_fisheye_setup(fx, fy, (w, h), (w, h),
@@ -189,12 +191,19 @@ def _narrow_net_np() -> dict:
             for f in ("weights", "biases", "u_vecs")}
 
 
-def _toy_calib_state(sc, cams, cfg, dev, nets: dict):
-    """The toy scene's 700 Gaussians nudged off their true positions, their
-    TrainState over `cams`, and the CalibState around it with the nets of
-    `nets` ("lens" and, if given, "cubemap_net"), vignetting at its init
-    and a zero shift. Returns (state, schedules)."""
-    from .. import convert
+def toy_asg(n: int, device=None) -> torch.Tensor:
+    """Seeded ASG features (n, 24) for the hybrid toys, normal with std
+    0.3 (the trainer starts them at zero, where the first step gives the
+    specular MLP's feature weights no gradient)."""
+    rng = np.random.default_rng(5)
+    return torch.as_tensor(rng.normal(0, 0.3, (n, 24)).astype(np.float32),
+                           device=resolve_device(device))
+
+
+def _toy_train_state(sc, cams, cfg, dev):
+    """The toy scene's 700 Gaussians nudged off their true positions (with
+    `toy_asg` features when cfg.calib.hybrid) and their TrainState over
+    `cams` (spatial lr scale 2)."""
     from ..model.gaussians import Gaussians
     from ..train.loop import init_train_state
 
@@ -205,13 +214,134 @@ def _toy_calib_state(sc, cams, cfg, dev, nets: dict):
                   sh_dc=sc["sh_coeffs"][:, :1].contiguous(),
                   sh_rest=sc["sh_coeffs"][:, 1:].contiguous(),
                   scales_log=torch.log(sc["scales"]), quats=sc["quats"],
-                  opacity_raw=torch.log(op / (1 - op)))
-    base = init_train_state(g, torch.ones(700, dtype=torch.bool, device=dev),
+                  opacity_raw=torch.log(op / (1 - op)),
+                  asg=toy_asg(700, dev) if cfg.calib.hybrid else None)
+    return init_train_state(g, torch.ones(700, dtype=torch.bool, device=dev),
                             cams, cfg, 2.0)
+
+
+def _toy_calib_state(sc, cams, cfg, dev, nets: dict):
+    """`_toy_train_state` and the CalibState around it with the nets of
+    `nets` ("lens" and, if given, "cubemap_net"), vignetting at its init
+    and a zero shift. Returns (state, schedules)."""
+    from .. import convert
+
+    base = _toy_train_state(sc, cams, cfg, dev)
     return convert.calib_state_from_numpy(base, cfg, {
         **nets, "vig": {"a_k": np.full(4, 0.01, np.float32),
                         "beta_k": np.linspace(2, 8, 4).astype(np.float32)},
         "shift": np.zeros(3, np.float32)}, device=dev)
+
+
+def pose_toy(device, gt: torch.Tensor = None, hybrid: bool = False,
+             mcmc: bool = False) -> dict:
+    """A toy pose-optimising training setup (`train_step`; pose and FoVs
+    trained): the 700 SH-3 Gaussians of the 64x48 toy scene nudged off
+    their true positions, two cameras (the second moved 0.1 in x), the GT
+    the true scene from camera 1 unless `gt` is given; `hybrid` adds the
+    specular colour (`toy_asg` features), `mcmc` the MCMC regularisers.
+    Returns dict(state, cfg, static, gt)."""
+    from ..raster.render import RenderConfig, render
+    from ..train.config import TrainConfig
+
+    dev = resolve_device(device)
+    cfg = TrainConfig()
+    cfg.model.sh_degree = 3
+    cfg.calib.opt_cam = cfg.calib.opt_intrinsic = True
+    cfg.calib.hybrid, cfg.mcmc = hybrid, mcmc
+    sc = make_toy_scene(n=700, width=64, height=48, sh_degree=3, seed=0,
+                        device=dev)
+    cams = CameraParams.stack([sc["cam"], dataclasses.replace(
+        sc["cam"], t_init=torch.tensor([0.1, 0.0, 0.0], device=dev))])
+    if gt is None:
+        with torch.no_grad():
+            gt = render(sc["xyz"], sc["scales"], sc["quats"], sc["opacity"],
+                        sc["sh_coeffs"], cams[1], sc["static"],
+                        RenderConfig(sh_degree=3)).render
+    return dict(state=_toy_train_state(sc, cams, cfg, dev), cfg=cfg,
+                static=sc["static"], gt=gt.to(dev))
+
+
+def mcmc_toy(device) -> dict:
+    """A population for the MCMC pieces, from numpy seed 6: capacity 2048,
+    1,600 alive SH-1 Gaussians with ASG features, 40 of them under the
+    0.005 opacity floor and most of the first 100 just over it, and the
+    draws to inject: 40 relocation sources
+    among the first 8 live slots (so with repeats), the 8 growth sources
+    float32's target asks (1,608 - 1,600) and standard normal noise
+    (2048, 3). Returns dict(g, alive, reloc, grow, eps)."""
+    from .. import convert
+
+    dev = resolve_device(device)
+    cap, n_alive, n_dead = 2048, 1600, 40
+    rng = np.random.default_rng(6)
+    o = rng.uniform(0.01, 0.99, cap)
+    d = dict(xyz=rng.normal(0, 1, (cap, 3)), sh_dc=rng.normal(0, 1, (cap, 1, 3)),
+             sh_rest=rng.normal(0, 0.1, (cap, 3, 3)),
+             scales_log=rng.uniform(-5, -1, (cap, 3)),
+             quats=rng.normal(0, 1, (cap, 4)), opacity_raw=np.log(o / (1 - o)),
+             asg=rng.normal(0, 0.3, (cap, 24)))
+    d = {k: v.astype(np.float32) for k, v in d.items()}
+    dead = rng.choice(n_alive, n_dead, replace=False)
+    d["opacity_raw"][dead] = -8.0
+    # opacity 0.0067, live and just over the floor: position noise gated on
+    d["opacity_raw"][:100] = np.where(np.isin(np.arange(100), dead), -8.0, -5.0)
+    d["alive"] = np.arange(cap) < n_alive
+    g, alive = convert.gaussians_from_numpy(d, device=dev)
+    live = np.setdiff1d(np.arange(n_alive), dead)
+    n_new = int(np.float32(1.005) * np.float32(n_alive)) - n_alive
+    return dict(g=g, alive=alive, reloc=rng.choice(live[:8], n_dead),
+                grow=rng.choice(n_alive, n_new),
+                eps=torch.as_tensor(rng.normal(size=(cap, 3)).astype(np.float32),
+                                    device=dev))
+
+
+def run_mcmc_toy(t: dict, noise_input: dict = None) -> dict:
+    """`relocate_dead` then `add_new_gaussians` on `mcmc_toy`'s population
+    in place, their sources injected (in place of `_sample_by_opacity`'s
+    draws), then `position_noise` at xyz lr 3e-4 with its normal draws on
+    the population they left or, given `noise_input` (another run's
+    result), on that one's fields and alive, so that two devices noise
+    the same population: the sharp opacity gate would otherwise magnify
+    the relocated opacities' last-bit differences. Returns, on the CPU,
+    every field, alive, both reset masks, the counts, the new xyz and
+    `noise_terms`, per entry of the new xyz the scale of its rounding, in
+    float64: the magnitudes of the terms it adds up, |xyz| + sum_jk |R_ik|
+    s_k^2 |R_jk| |eps'_j| (eps' the gated and scaled draws), the noise's
+    part times 1 + (1 - gate) (100 |1 - o| + 99.5), for the gate's
+    argument 100 ((1 - o) - 0.995) cancels to a few hundredths and the
+    gate's relative change is (1 - gate) times the argument's change."""
+    from ..core.lie import quat_to_rotmat
+    from ..model import mcmc
+
+    g, dev = t["g"], t["alive"].device
+    queue = [torch.as_tensor(t["reloc"], device=dev),
+             torch.as_tensor(t["grow"], device=dev)]
+    sample = mcmc._sample_by_opacity
+    mcmc._sample_by_opacity = lambda gen, g_, live, num: queue.pop(0)
+    try:
+        r1 = mcmc.relocate_dead(g, t["alive"], None)
+        r2 = mcmc.add_new_gaussians(g, r1.alive, None)
+    finally:
+        mcmc._sample_by_opacity = sample
+    out = {k: v.detach().cpu() for k, v in g.fields().items()}
+    out.update(alive=r2.alive.cpu(), reset1=r1.reset_mask.cpu(),
+               reset2=r2.reset_mask.cpu(), counts=(r1.n_relocated, r2.n_relocated))
+    src = noise_input or out
+    pop = dataclasses.replace(g, **{k: src[k].to(dev) for k in g.fields()})
+    with torch.no_grad():
+        xyz = mcmc.position_noise(pop, src["alive"].to(dev), t["eps"], 3e-4)
+    d = {k: src[k].double() for k in ("xyz", "scales_log", "quats", "opacity_raw")}
+    one_minus = 1.0 - torch.sigmoid(d["opacity_raw"])
+    gate = torch.sigmoid(100.0 * (one_minus - 0.995))
+    eps = t["eps"].cpu().double().abs() * (gate * 5e5 * 3e-4)[:, None]
+    rot = quat_to_rotmat(d["quats"]).abs()
+    terms = torch.einsum("nik,nk,njk,nj->ni", rot, torch.exp(2 * d["scales_log"]),
+                         rot, eps)
+    cond = 1.0 + (1.0 - gate) * (100.0 * one_minus.abs() + 99.5)
+    out.update(noised_xyz=xyz.cpu(), noise_terms=d["xyz"].abs()
+               + terms * (cond * src["alive"])[:, None])
+    return out
 
 
 def write_fisheye_pair(root: str, image_paths, fish_images, width: int,

@@ -127,12 +127,46 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      Gaussians, 12 cameras). Checks the JAX tool's JSON keys, finite
      values, one backward launch an iteration and a flow error that falls;
      prints its JSON line;
- 14. prints the kernels line (JSON: the forward, the backward, the
+ 14. slice 5, MCMC and the hybrid specular colour: (a) the toy pose
+     step with `--hybrid` and the MCMC regularisers and the toy fisheye
+     step with `--hybrid` through both kernels against the CPU (step 11's
+     criteria, the ASG features and the specular weights among the
+     gradients), and `relocate_dead`, `add_new_gaussians` and
+     `position_noise` with the same injected draws on the card and the CPU
+     (counts, alive and reset masks identical, every relocated float
+     within 1e-6 of itself, each noised position, from the CPU's
+     population on both, within 1e-6 of its rounding scale);
+     (b) the main path, `bags_tpu_torch.cli.train --preset fisheye_mcmc
+     --hybrid --init_type sfm` for 30 iterations on step 11's dataset
+     (the lens pre-fit's 5,000 steps first; relocations at iterations 10
+     and 20): one forward and one backward launch a step, a finite falling
+     loss, two relocations each growing the live count N to exactly
+     int(float32(1.005) float32(N)), the checkpoint's ASG, specular and
+     specular-Adam leaves, the specular weights and ASG features changed
+     between the checkpoints after steps 1 and 30, the render CLI's
+     restore writing lens-warped pairs (one launch a view); (c) on the
+     trained state, a seeded 1 % of the live slots set to raw opacity -10
+     and `mcmc_step`: that many relocated, each moved row its source's,
+     the merged opacities and scales `compute_relocation`'s, the Adam
+     moments zero on the reset rows, the step's ms; (e) that state's
+     fisheye step split by stage (`stagebench.fisheye_step_stages`, with
+     a trace: the specular colour's forward and backward, `mcmc_step`,
+     `mcmc_noise_step`, the step over 5 steps, the peak memory, the
+     device-busy share and the launches); (d) `cli.train --preset
+     pose_noise --init_type sfm --mcmc --hybrid` for 30 iterations on step
+     5's dataset (the only mode with the MCMC regularisers) with (b)'s
+     checks but the falling loss, and the render CLI's restore, one launch
+     a view, finite PSNR; then that model's pose step split by stage
+     (`stagebench.train_step_stages`: the specular colour, the
+     regularisers, the specular colour's forward and backward alone,
+     `mcmc_step`, `mcmc_noise_step`, the step over 5 steps, the peak
+     memory), beside step 9's split of the plain pose step;
+ 15. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
      every variant's under "variants"; the forward's and the backward's
-     launches by path, fisheye, cubemap and recovery included, and their
-     numbers on the extended-FoV render and the cubemap faces) and, last,
-     the device line (JSON).
+     launches by path, fisheye, cubemap, recovery and slice 5's paths
+     included, and their numbers on the extended-FoV render and the
+     cubemap faces) and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
 """
@@ -1701,6 +1735,310 @@ def cubemap_checks(model, data, device):
     return fwd_numbers, bwd_numbers
 
 
+# The MCMC window of step 14: relocations at iterations 10 and 20 of 30.
+MCMC_WINDOW = ["--densify_from_iter", "5", "--densification_interval", "10",
+               "--densify_until_iter", "25"]
+SPEC_NAMES = ("feat_w", "feat_b", "w1", "b1", "w2", "b2", "w3", "b3")
+
+
+def hybrid_toy_checks(device):
+    """Slice 5's toys card against CPU (step 14a): the pose step with the
+    specular colour and the MCMC regularisers, the fisheye step with the
+    specular colour (`toy_step_check`'s criteria, the ASG features and the
+    specular weights among the gradients), and `relocate_dead`,
+    `add_new_gaussians` and `position_noise` with the same injected draws
+    (`utils/testing.run_mcmc_toy`): counts, alive and reset masks
+    identical, every float of the relocated fields within 1e-6 of itself
+    (rtol 1e-6, atol 0); `position_noise` on the CPU's relocated
+    population on both, each noised position within 1e-6 of the scale of
+    its rounding (`noise_terms`: the terms it adds up can cancel, and the
+    opacity gate's argument does)."""
+    import torch
+    from bags_tpu_torch.raster.render import RenderConfig
+    from bags_tpu_torch.train.calibrated import fisheye_train_step
+    from bags_tpu_torch.train.loop import train_step
+    from bags_tpu_torch.utils.testing import (fisheye_toy, mcmc_toy, pose_toy,
+                                              run_mcmc_toy)
+
+    toy_step_check("toy hybrid mcmc pose step",
+                   lambda dev, gt: pose_toy(dev, gt, hybrid=True, mcmc=True),
+                   lambda t, dev: train_step(t["state"], t["gt"], 1,
+                                             torch.zeros(3, device=dev), t["static"],
+                                             RenderConfig(sh_degree=3), t["cfg"]),
+                   1, device)
+    toy_step_check("toy hybrid fisheye step",
+                   lambda dev, gt: fisheye_toy(dev, gt, hybrid=True),
+                   lambda t, dev: fisheye_train_step(
+                       t["state"], t["gt"], t["p_view"], 0, torch.zeros(3, device=dev),
+                       t["setup"], RenderConfig(sh_degree=3), t["cfg"], t["schedules"],
+                       True, True), 1, device)
+    cpu = run_mcmc_toy(mcmc_toy(torch.device("cpu")))
+    card = run_mcmc_toy(mcmc_toy(device), noise_input=cpu)
+    check(card["counts"] == cpu["counts"] == (40, 8),
+          f"toy relocation counts card {card['counts']} cpu {cpu['counts']}")
+    for k in ("alive", "reset1", "reset2"):
+        check(torch.equal(card[k], cpu[k]), f"toy relocation {k} differs")
+    worst = {}
+    for k in ("xyz", "sh_dc", "sh_rest", "scales_log", "quats", "opacity_raw",
+              "asg", "noised_xyz"):
+        diff = (card[k] - cpu[k]).abs()
+        worst[k] = float((diff / cpu[k].abs()).nan_to_num(0.0).max())
+        scale = cpu["noise_terms"] if k == "noised_xyz" else cpu[k].abs()
+        over = int((diff > 1e-6 * scale).sum())
+        check(over == 0, f"toy relocation {k}: {over} entries differ by more than "
+              f"1e-6 of their scale (largest relative difference {worst[k]})")
+    diff = (card["noised_xyz"] - cpu["noised_xyz"]).abs().double()
+    terms = float((diff / cpu["noise_terms"]).max())
+    over = int((diff > 1e-6 * cpu["noised_xyz"].abs()).sum())
+    print("toy relocation card vs cpu: counts " f"{card['counts']}, masks identical, "
+          "largest relative differences " + json.dumps(
+              {k: f"{v:.1e}" for k, v in worst.items()})
+          + f"; noised positions: {over} over 1e-6 of themselves, the largest "
+          f"difference {terms:.1e} of their rounding scale")
+
+
+def check_growth(label, log):
+    """Each relocation step of an MCMC log (it, relocated, added, before,
+    after) grew the live count to exactly int(float32(1.005) * float32(N))."""
+    import numpy as np
+
+    print(f"{label} mcmc log (it, relocated, added, alive before, after): {log}")
+    check([e[0] for e in log] == [10, 20], f"{label}: relocations at {log}")
+    for it, _, added, before, after in log:
+        want = int(np.float32(1.005) * np.float32(before))
+        check(after == want == before + added,
+              f"{label} iteration {it}: live {before} -> {after}, float32 target {want}")
+
+
+def train_cli_run(label, argv):
+    """`cli.train` with `argv`, timed, the launch counts from 0 and the peak
+    memory reset. Returns (summary, forward launches, backward launches)."""
+    import math
+
+    import torch
+    from bags_tpu_torch.cli import train as train_cli
+    from bags_tpu_torch.raster import composite
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    summary = train_cli.main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    losses, steps = summary["losses"], summary["step_s"]
+    prefit = summary["lens_prefit_s"]
+    print(f"{label} train CLI: {len(losses)} steps in {train_s:.1f} s"
+          + (f" (lens pre-fit {prefit:.2f} s of it)" if prefit else "")
+          + f", forward launches {fwd} ({summary['eval_renders']} of them "
+          f"evaluation renders), backward launches {bwd}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{label} train losses " + " ".join(f"{x:.5f}" for x in losses))
+    print(f"{label} train step_ms " + " ".join(f"{1e3 * x:.1f}" for x in steps))
+    print("\n".join(summary["eval"]))
+    check(len(losses) == TRAIN_ITERS, f"{label}: {len(losses)} training steps")
+    check(bwd == TRAIN_ITERS, f"{label}: {bwd} backward launches for {TRAIN_ITERS} steps")
+    check(fwd == TRAIN_ITERS + summary["eval_renders"],
+          f"{label}: {fwd} forward launches for {TRAIN_ITERS} steps and "
+          f"{summary['eval_renders']} evaluation renders")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    check(summary["eval"], f"{label}: no evaluation lines")
+    check(summary["densify"] == [], f"{label}: densify ran under --mcmc")
+    check_growth(label, summary["mcmc"])
+    return summary, fwd, bwd
+
+
+def fisheye_mcmc_train_path(data):
+    """Slice 5's main path (step 14b): `cli.train --preset fisheye_mcmc
+    --hybrid` at full width on step 11's dataset, the lens pre-fit first,
+    checkpoints after steps 1 and 30. Checks `train_cli_run`'s, a falling
+    loss, the checkpoint's ASG, specular and specular-Adam leaves, and the
+    specular weights and the ASG features changed from step 1 to 30.
+    Returns (model path, forward launches, backward launches)."""
+    import numpy as np
+
+    model = os.path.join(WORK, "fish_mcmc_model")
+    summary, fwd, bwd = train_cli_run("fisheye_mcmc hybrid", [
+        "-s", data, "-m", model, "--preset", "fisheye_mcmc", "--hybrid",
+        "--init_type", "sfm", "--iterations", str(TRAIN_ITERS), *MCMC_WINDOW,
+        "--test_iterations", str(TRAIN_ITERS), "--save_iterations", str(TRAIN_ITERS),
+        "--checkpoint_iterations", "1", str(TRAIN_ITERS), "--device", "cuda"])
+    losses = summary["losses"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"fisheye_mcmc loss did not fall: first 5 {first:.5f}, "
+                        f"last 5 {last:.5f}")
+    ck = {it: np.load(os.path.join(model, f"chkpnt{it}.npz")) for it in (1, TRAIN_ITERS)}
+    keys = (["v2|.base.g.asg", "v2|.base.spec_opt[1].count"]
+            + [f"v2|.base.spec.{k}" for k in SPEC_NAMES]
+            + [f"v2|.base.spec_opt[0].{m}.{k}" for m in ("mu", "nu") for k in SPEC_NAMES])
+    missing = [k for k in keys if k not in ck[TRAIN_ITERS].files]
+    check(not missing, f"the checkpoint lacks {missing}")
+    check(int(ck[TRAIN_ITERS]["v2|.base.spec_opt[0].count"]) == TRAIN_ITERS,
+          "the specular MLP did not step every iteration")
+    moved = {k: float(np.abs(ck[TRAIN_ITERS][k] - ck[1][k]).max())
+             for k in [f"v2|.base.spec.{k}" for k in SPEC_NAMES] + ["v2|.base.g.asg"]}
+    print("fisheye_mcmc hybrid: largest change from step 1 to step "
+          f"{TRAIN_ITERS}: " + json.dumps({k[8:]: f"{v:.3e}" for k, v in moved.items()}))
+    check(all(v > 0 for v in moved.values()), f"unchanged leaves: {moved}")
+    return model, fwd, bwd
+
+
+def relocation_full_width(model, data, device):
+    """Relocation at full width (step 14c): the trained hybrid fisheye model
+    and its Adam moments restored, the raw opacity of a seeded 1 % of the
+    live slots set to -10, then `mcmc_step`, its draws recorded. Checks:
+    n_relocated is that count (plus any slot already under the floor); each
+    moved row (the dead slots in index order) holds its source's xyz, SH,
+    quaternion and ASG features; the rows relocation merged (and growth did
+    not touch again) hold `compute_relocation`'s opacity and scale at their
+    source's n_merge (rtol 1e-5); the Adam moments are zero on every reset
+    row. Returns (the trainer, its scene)."""
+    import torch
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.model import mcmc
+    from bags_tpu_torch.train.loop import mcmc_step
+
+    cfg, scene, _, it, trainer = render_cli.restore_trained(model, data, -1, device)
+    trainer.load_checkpoint(os.path.join(model, f"chkpnt{it}.npz"))
+    base = trainer.base
+    g = base.g
+    with torch.no_grad():
+        live = torch.nonzero(base.alive & (torch.sigmoid(g.opacity_raw) > 0.005)
+                             ).squeeze(1)
+        gen = torch.Generator(device=device).manual_seed(14)
+        pick = live[torch.randperm(live.numel(), generator=gen, device=device)
+                    [:live.numel() // 100]]
+        g.opacity_raw[pick] = -10.0
+        dead = base.alive & (torch.sigmoid(g.opacity_raw) <= cfg.opacity_threshold)
+        dead_idx = torch.nonzero(dead).squeeze(1)
+        before = {k: t.detach().clone() for k, t in g.fields().items()}
+        alive_before = base.alive.clone()
+    draws, sample = [], mcmc._sample_by_opacity
+
+    def recording(*args):
+        draws.append(sample(*args))
+        return draws[-1]
+
+    mcmc._sample_by_opacity = recording
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_rel, n_add = mcmc_step(base, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        mcmc._sample_by_opacity = sample
+    src, grow_src = draws
+    print(f"full-width relocation: {pick.numel()} of {live.numel()} live slots set "
+          f"to raw opacity -10 ({dead_idx.numel()} under the floor), relocated "
+          f"{n_rel}, added {n_add}, mcmc_step {ms:.2f} ms")
+    check(n_rel == dead_idx.numel() >= pick.numel(),
+          f"relocated {n_rel}, {dead_idx.numel()} under the floor, {pick.numel()} set")
+    with torch.no_grad():
+        for k in ("xyz", "sh_dc", "sh_rest", "quats", "asg"):
+            check(torch.equal(getattr(g, k)[dead_idx], before[k][src]),
+                  f"a moved row's {k} is not its source's")
+        sources, inv, counts = torch.unique(src, return_inverse=True,
+                                            return_counts=True)
+        new_o, new_s = mcmc.compute_relocation(
+            torch.sigmoid(before["opacity_raw"][sources]),
+            torch.exp(before["scales_log"][sources]), counts + 1)
+        new_o = torch.clamp(new_o, cfg.opacity_threshold, 1.0 - 1e-7)
+        rows = torch.cat([sources, dead_idx])
+        want_o, want_s = torch.cat([new_o, new_o[inv]]), torch.cat([new_s, new_s[inv]])
+        regrown = torch.zeros_like(base.alive)
+        regrown[grow_src] = True
+        keep = ~regrown[rows]
+        err_o = ((torch.sigmoid(g.opacity_raw[rows]) - want_o).abs() / want_o)[keep].max()
+        err_s = ((torch.exp(g.scales_log[rows]) - want_s).abs() / want_s)[keep].max()
+        print(f"full-width relocation: {sources.numel()} sources, n_merge up to "
+              f"{int(counts.max()) + 1}; merged opacity and scale off "
+              f"compute_relocation by {float(err_o):.2e} and {float(err_s):.2e} "
+              f"(relative) on {int(keep.sum())} rows")
+        check(float(err_o) <= 1e-5 and float(err_s) <= 1e-5,
+              "merged opacity or scale off compute_relocation")
+        reset = torch.zeros_like(base.alive)
+        reset[dead_idx] = True
+        reset[sources] = True
+        reset[grow_src] = True
+        reset |= base.alive & ~alive_before
+        for group in base.g_opt.param_groups:
+            st = base.g_opt.state[group["params"][0]]
+            check(not st["exp_avg"][reset].any() and not st["exp_avg_sq"][reset].any(),
+                  f"Adam moments of group {group['name']} not zeroed")
+    return trainer, scene
+
+
+def pose_mcmc_hybrid_path(data):
+    """Pose mode with `--mcmc --hybrid` (step 14d): `cli.train --preset
+    pose_noise --init_type sfm --mcmc --hybrid` on step 5's dataset for 30
+    iterations (`train_cli_run`'s checks: the MCMC regularisers are in its
+    loss), then the render CLI restores it: one forward launch a view,
+    finite PSNR; then the restored model's step split by stage
+    (`stagebench.train_step_stages`, with the hybrid and MCMC stages).
+    Returns (forward launches of training, backward launches, forward
+    launches of the restore)."""
+    import math
+
+    import torch
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import stagebench
+
+    model = os.path.join(WORK, "pose_mcmc_model")
+    _, fwd, bwd = train_cli_run("pose mcmc hybrid", [
+        "-s", data, "-m", model, "--preset", "pose_noise", "--init_type", "sfm",
+        "--mcmc", "--hybrid", "--iterations", str(TRAIN_ITERS), *MCMC_WINDOW,
+        "--test_iterations", str(TRAIN_ITERS), "--save_iterations", str(TRAIN_ITERS),
+        "--checkpoint_iterations", str(TRAIN_ITERS), "--device", "cuda"])
+    composite.fwd_launches = 0
+    t0 = time.perf_counter()
+    summary = render_cli.main(["-m", model, "-s", data, "--device", "cuda"])
+    torch.cuda.synchronize()
+    psnrs = {k: v["psnr"] for k, v in summary.items()}
+    n_views = sum(len(v) for v in psnrs.values())
+    print(f"pose mcmc hybrid restore: {n_views} views in "
+          f"{time.perf_counter() - t0:.1f} s, PSNR {psnrs}, forward launches "
+          f"{composite.fwd_launches}")
+    check(n_views == N_CAMS and composite.fwd_launches == n_views,
+          f"{composite.fwd_launches} forward launches for {n_views} views")
+    check(all(math.isfinite(p) for v in psnrs.values() for p in v),
+          "non-finite PSNR after the hybrid restore")
+    n_restore = composite.fwd_launches
+    cfg, scene, state = render_cli.restore_trained(model, data, -1,
+                                                   torch.device("cuda"))[:3]
+    st = stagebench.train_step_stages(state, scene, cfg, torch.device("cuda"))
+    keys = ("specular", "mcmc_regularisers", "specular_fwd_alone",
+            "specular_bwd_alone", "mcmc_step", "mcmc_noise_step")
+    missing = [k for k in keys if k not in st["stages_ms"]]
+    check(not missing, f"the hybrid pose stage split lacks {missing}")
+    return fwd, bwd, n_restore
+
+
+def hybrid_stage_split(trainer, scene, device):
+    """The hybrid MCMC fisheye step split by stage (step 14e):
+    `stagebench.fisheye_step_stages` on the trainer of step 14c, with a
+    profiler trace: the specular colour's forward and backward, one
+    `mcmc_step`, `mcmc_noise_step`, the step over 5 steps, the peak memory,
+    the device-busy share and the launches."""
+    from bags_tpu_torch.tools import stagebench
+
+    out = stagebench.fisheye_step_stages(trainer, scene.fish_image(0), device,
+                                         os.path.join(WORK, "fish_mcmc_trace"))
+    st, tr = out["stages_ms"], out["trace"]
+    keys = ("specular", "specular_fwd_alone", "specular_bwd_alone",
+            "specular_fwd_bwd_alone", "mcmc_step", "mcmc_noise_step")
+    missing = [k for k in keys if k not in st]
+    check(not missing, f"the hybrid stage split lacks {missing}")
+    print("hybrid fisheye step: " + json.dumps(
+        {**{k: round(st[k], 3) for k in keys},
+         "step_ms": [round(x, 2) for x in out["step_ms"]],
+         "peak_gib": round(out["peak_gib"], 2),
+         "busy_share": round(tr["busy_ms"] / max(tr["span_ms"], 1e-9), 4),
+         "launches": tr["launches"]}))
+
+
 def jax_recovery_keys():
     """The keys of the JAX package's `tools/lens_recovery.py` JSON line, read
     from its source without importing it."""
@@ -1883,7 +2221,30 @@ def main():
     bwd_entry["launches_by_path"]["lens_recovery"] = rec_bwd
     print(f"step 13 took {time.perf_counter() - t0:.1f} s")
 
-    # 14. the kernels line, then the device line
+    # 14. slice 5's main path: MCMC and the hybrid specular colour
+    t0 = time.perf_counter()
+    hybrid_toy_checks(device)
+    t1 = time.perf_counter()
+    mcmc_model, mcmc_fwd, mcmc_bwd = fisheye_mcmc_train_path(data)
+    fwd_entry["launches_by_path"]["train_cli_fisheye_mcmc_hybrid"] = mcmc_fwd
+    bwd_entry["launches_by_path"]["train_cli_fisheye_mcmc_hybrid"] = mcmc_bwd
+    fwd_entry["launches_by_path"]["render_cli_fisheye_mcmc_hybrid"] = (
+        fisheye_restore_path(mcmc_model, data))
+    print(f"step 14b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mcmc_trainer, mcmc_scene = relocation_full_width(mcmc_model, data, device)
+    hybrid_stage_split(mcmc_trainer, mcmc_scene, device)
+    del mcmc_trainer, mcmc_scene
+    print(f"steps 14c and 14e took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    pose_fwd, pose_bwd, pose_render = pose_mcmc_hybrid_path(data)
+    fwd_entry["launches_by_path"]["train_cli_pose_mcmc_hybrid"] = pose_fwd
+    bwd_entry["launches_by_path"]["train_cli_pose_mcmc_hybrid"] = pose_bwd
+    fwd_entry["launches_by_path"]["render_cli_pose_mcmc_hybrid"] = pose_render
+    print(f"step 14d took {time.perf_counter() - t1:.1f} s; step 14 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 15. the kernels line, then the device line
     print(f"total {time.perf_counter() - t_all:.1f} s")
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, ablate_entry, fori_entry]}))

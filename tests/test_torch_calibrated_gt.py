@@ -3,9 +3,9 @@ fisheye GT warped into perspective; no vignetting, no shift): one step
 (loss, masked render and every gradient), three steps of state and the NaN
 guard of the lens against JAX's step, compiled once here. Then the port's
 CLIs in the fisheye mode on a tiny COLMAP scene with a `fish/` pair, on the
-CPU: `cli.train --preset fisheye` (the lens pre-fit cut to a few steps) and
-`cli.render` restoring the model and writing lens-warped pairs against the
-fisheye GT."""
+CPU: `cli.train --preset fisheye`, and `--preset fisheye_mcmc --hybrid`
+(the lens pre-fit cut to a few steps), and `cli.render` restoring each
+model and writing lens-warped pairs against the fisheye GT."""
 
 import os
 
@@ -172,29 +172,60 @@ def fish_dataset(tmp_path_factory):
     return root
 
 
-@pytest.fixture(scope="module")
-def fisheye_model(fish_dataset, tmp_path_factory):
+# The CLI variants: `--preset fisheye`, and `--preset fisheye_mcmc --hybrid`
+# with the MCMC window moved so that one relocation (iteration 3) runs.
+VARIANTS = {
+    "fisheye": ["--preset", "fisheye"],
+    "fisheye_mcmc_hybrid": ["--preset", "fisheye_mcmc", "--hybrid",
+                            "--densify_from_iter", "1", "--densification_interval",
+                            "3", "--densify_until_iter", "6"],
+}
+
+
+@pytest.fixture(scope="module", params=sorted(VARIANTS))
+def fisheye_model(request, fish_dataset, tmp_path_factory):
     from bags_tpu_torch.cli import train as train_cli
 
     model = str(tmp_path_factory.mktemp("fish_model"))
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tcal, "LENS_PREFIT_ITERS", 2)   # 5,000 steps of the 5x512 net: long on a CPU
         summary = train_cli.main([
-            "-s", fish_dataset, "-m", model, "--preset", "fisheye", "--init_type",
-            "sfm", "--sh_degree", "0", "--iterations", "6", "--test_iterations",
-            "6", "--save_iterations", "6", "--checkpoint_iterations", "6",
-            "--device", "cpu", "--quiet"])
-    return model, summary
+            "-s", fish_dataset, "-m", model, *VARIANTS[request.param],
+            "--init_type", "sfm", "--sh_degree", "0", "--iterations", "6",
+            "--test_iterations", "6", "--save_iterations", "6",
+            "--checkpoint_iterations", "6", "--device", "cpu", "--quiet"])
+    return model, summary, request.param
 
 
 def test_train_cli_fisheye_preset(fisheye_model, capsys):
     """`--preset fisheye` trains: the lens pre-fit ran (and its time was
     printed), finite losses, an evaluation against the fisheye GT, and a
     checkpoint holding the lens, vignetting and shift leaves, the lens
-    moved by training from its pre-fit."""
+    moved by training from its pre-fit. `--preset fisheye_mcmc --hybrid`
+    does too, with one relocation in its MCMC log that grows the live
+    count to float32's 1.005 x, no densify step, and the ASG features,
+    the specular MLP and its Adam state in the checkpoint, trained."""
     from bags_tpu_torch.calib.iresnet import init_iresnet_params
+    from bags_tpu_torch.calib.specular import init_specular_params
 
-    model, summary = fisheye_model
+    model, summary, variant = fisheye_model
+    if variant == "fisheye_mcmc_hybrid":
+        data = np.load(os.path.join(model, "chkpnt6.npz"))
+        assert summary["densify"] == []
+        [(it, _, added, before, after)] = summary["mcmc"]
+        assert it == 3 and after == before + added
+        assert after == int(np.float32(1.005) * np.float32(before)) > before
+        assert int(data["v2|.base.alive"].sum()) == after
+        assert int(data["v2|.base.spec_opt[0].count"]) == 6
+        init = init_specular_params(0)
+        for k in ("feat_w", "w1", "b3"):
+            assert np.abs(data[f"v2|.base.spec.{k}"]
+                          - getattr(init, k).detach().numpy()).max() > 0, k
+        assert data["v2|.base.g.asg"].shape[1] == 24
+        assert np.abs(data["v2|.base.g.asg"]).max() > 0
+        assert "v2|.base.spec_opt[1].count" in data.files
+    else:
+        assert summary["mcmc"] == []
     assert summary["lens_prefit_s"] is not None
     assert len(summary["losses"]) == 6 and np.isfinite(summary["losses"]).all()
     assert any("Evaluating test" in line for line in summary["eval"])
@@ -217,8 +248,11 @@ def test_render_cli_restores_fisheye_model(fisheye_model, fish_dataset):
 
     from bags_tpu_torch.cli import render as render_cli
 
-    model, _ = fisheye_model
+    model, _, variant = fisheye_model
     summary = render_cli.main(["-m", model, "-s", fish_dataset, "--device", "cpu"])
+    trained = render_cli.restore_trained(model, fish_dataset, -1,
+                                         torch.device("cpu"))
+    assert (trained[2].spec is not None) == (variant == "fisheye_mcmc_hybrid")
     assert sorted(summary) == ["test", "train"]
     for split in summary.values():
         assert np.isfinite(split["psnr"]).all()

@@ -65,7 +65,13 @@ def test_cli_matches_jax_render_cli(tmp_path, capsys, dataset):
     common = ["-m", model, "-s", root, "--ply_only", "--sh_degree", "1",
               "--white_background"]
 
-    jax_cli.main(common + ["--backend", "jnp", "--max_instances", "16384"])
+    import jax
+    import bags_tpu.raster
+
+    with pytest.MonkeyPatch.context() as mp:   # the CLI's render, jitted
+        mp.setattr(bags_tpu.raster, "render", jax.jit(
+            bags_tpu.raster.render, static_argnames=("static", "cfg")))
+        jax_cli.main(common + ["--backend", "jnp", "--max_instances", "16384"])
     jax_out = capsys.readouterr().out
     jax_tree = {}
     for dirpath, _, files in os.walk(model):
@@ -111,12 +117,12 @@ def test_cli_unported_paths_raise(tmp_path):
     _lookat_scene(root)
     from bags_tpu_torch.train.config import TrainConfig
 
-    for flag, slice_ in (("mcmc", "slice 5"), ("hybrid", "slice 5")):
+    for flag, slice_ in (("batch_cams", "slice 5"),):
         model = str(tmp_path / f"ckpt_{flag}")
         os.makedirs(model)
         open(os.path.join(model, "chkpnt100.npz"), "wb").close()
         cfg = TrainConfig()
-        setattr(cfg.calib if flag == "hybrid" else cfg, flag, True)
+        cfg.opt.batch_cams = 2
         with open(os.path.join(model, "cfg.json"), "w") as f:
             f.write(cfg.to_json())
         with pytest.raises(NotImplementedError, match=slice_):

@@ -102,27 +102,29 @@ def cube_dataset(tmp_path_factory):
     return root
 
 
-@pytest.fixture(scope="module")
-def cube_model(cube_dataset, tmp_path_factory):
+@pytest.fixture(scope="module", params=["cubemap", "cubemap_hybrid"])
+def cube_model(request, cube_dataset, tmp_path_factory):
     from bags_tpu_torch.cli import train as train_cli
 
     model = str(tmp_path_factory.mktemp("cube_model"))
+    hybrid = ["--hybrid"] if request.param == "cubemap_hybrid" else []
     summary = train_cli.main([
-        "-s", cube_dataset, "-m", model, "--preset", "cubemap", "--init_type",
-        "sfm", "--sh_degree", "0", "--iterations", "6", "--test_iterations",
-        "6", "--save_iterations", "6", "--checkpoint_iterations", "6",
-        "--device", "cpu", "--quiet"])
-    return model, summary
+        "-s", cube_dataset, "-m", model, "--preset", "cubemap", *hybrid,
+        "--init_type", "sfm", "--sh_degree", "0", "--iterations", "6",
+        "--test_iterations", "6", "--save_iterations", "6",
+        "--checkpoint_iterations", "6", "--device", "cpu", "--quiet"])
+    return model, summary, bool(hybrid)
 
 
 def test_train_cli_cubemap_preset(cube_model):
     """`--preset cubemap` trains: finite losses, an evaluation of both
     splits, no pre-fit (the preset's `--no_init_iresnet`), and a checkpoint
     holding the cubemap net and its moments, stepped every iteration and
-    moved from its initialisation."""
+    moved from its initialisation; with `--hybrid`, the ASG features and
+    the specular MLP too, its Adam state stepped every iteration."""
     from bags_tpu_torch.calib.iresnet import init_iresnet_params
 
-    model, summary = cube_model
+    model, summary, hybrid = cube_model
     assert summary["lens_prefit_s"] is None
     assert len(summary["losses"]) == 6 and np.isfinite(summary["losses"]).all()
     assert any("Evaluating test" in line for line in summary["eval"])
@@ -137,19 +139,24 @@ def test_train_cli_cubemap_preset(cube_model):
                   - init.biases[0][0].detach().numpy()).max() > 0
     np.testing.assert_array_equal(data["v2|.cubemap_net.u_vecs[2][1]"],
                                   init.u_vecs[2][1].numpy())
+    spec_keys = ("v2|.base.g.asg", "v2|.base.spec.w1", "v2|.base.spec_opt[0].count")
+    assert all((k in data.files) == hybrid for k in spec_keys)
+    if hybrid:
+        assert int(data["v2|.base.spec_opt[0].count"]) == 6
 
 
 def test_render_cli_restores_cubemap_model(cube_model, cube_dataset):
     """The render CLI restores the cubemap checkpoint and renders plain
     perspective views of its Gaussians (as the JAX render CLI does): each
     written render is `render()` of the restored model at the view's
-    camera, PNG-quantised."""
+    camera, with a hybrid model's specular colour, PNG-quantised."""
     from PIL import Image
 
     from bags_tpu_torch.cli import render as render_cli
     from bags_tpu_torch.raster.render import render
+    from bags_tpu_torch.train.loop import extra_color
 
-    model, _ = cube_model
+    model, _, hybrid = cube_model
     summary = render_cli.main(["-m", model, "-s", cube_dataset, "--device", "cpu"])
     assert sorted(summary) == ["test", "train"]
     for split in summary.values():
@@ -157,12 +164,20 @@ def test_render_cli_restores_cubemap_model(cube_model, cube_dataset):
     cfg, scene, state, it, trainer = render_cli.restore_trained(
         model, cube_dataset, -1, torch.device("cpu"))
     assert trainer.mode == "cubemap" and it == 6
+    assert (state.spec is not None) == hybrid
     g = state.g
     with torch.no_grad():
+        extra = extra_color(state, state.cams[0])
         img = render(g.xyz, g.scaling(), g.quats, g.opacity(state.alive),
                      g.sh_coeffs(), state.cams[0], scene.static,
                      TCfg(sh_degree=0), bg=torch.zeros(3),
-                     align=state.align).render
+                     align=state.align, extra_color=extra).render
+        if hybrid:
+            plain = render(g.xyz, g.scaling(), g.quats, g.opacity(state.alive),
+                           g.sh_coeffs(), state.cams[0], scene.static,
+                           TCfg(sh_degree=0), bg=torch.zeros(3),
+                           align=state.align).render
+            assert (img - plain).abs().max() > 1e-3
     png = np.asarray(Image.open(os.path.join(summary["train"]["dir"], "renders",
                                              "00000.png")), float)
     want = np.clip(img.permute(1, 2, 0).numpy(), 0, 1) * 255

@@ -343,3 +343,82 @@ def test_cubemap_step_on_card_matches_cpu(cuda):
     for k, v in cpu.grads.items():
         torch.testing.assert_close(card.grads[k].detach().cpu(), v, atol=1e-5,
                                    rtol=1e-3, msg=k)
+
+
+def _step_card_vs_cpu(make_toy, run_step, cuda, renders=1):
+    """A toy step built by make_toy(device, gt) and taken by run_step(toy,
+    device) on the CPU (plain versions) and on the card (both kernels,
+    `renders` launches each) from the same state and GT: loss and image
+    within 2e-5, every gradient within atol 1e-5, rtol 1e-3."""
+    out, gt = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        t = make_toy(dev, gt)
+        gt = t["gt"].cpu()
+        before = composite.fwd_launches, composite.bwd_launches
+        out[dev.type] = run_step(t, dev)
+    assert (composite.fwd_launches, composite.bwd_launches) == (
+        before[0] + renders, before[1] + renders)
+    cpu, card = out["cpu"], out["cuda"]
+    assert abs(float(card.loss) - float(cpu.loss)) <= 2e-5
+    torch.testing.assert_close(card.image.cpu(), cpu.image, atol=2e-5, rtol=0)
+    assert set(card.grads) == set(cpu.grads)
+    for k, v in cpu.grads.items():
+        torch.testing.assert_close(card.grads[k].detach().cpu(), v, atol=1e-5,
+                                   rtol=1e-3, msg=k)
+    return cpu.grads
+
+
+def test_hybrid_mcmc_pose_step_on_card_matches_cpu(cuda):
+    """The toy pose step with the specular colour and the MCMC regularisers
+    (`utils/testing.pose_toy`), card against CPU; the ASG features and the
+    specular weights have gradients."""
+    from bags_tpu_torch.train.loop import train_step
+    from bags_tpu_torch.utils.testing import pose_toy
+
+    grads = _step_card_vs_cpu(
+        lambda dev, gt: pose_toy(dev, gt, hybrid=True, mcmc=True),
+        lambda t, dev: train_step(t["state"], t["gt"], 1, torch.zeros(3, device=dev),
+                                  t["static"], RenderConfig(sh_degree=3), t["cfg"]),
+        cuda)
+    assert {".g.asg", ".spec.feat_w", ".spec.w3"} <= set(grads)
+
+
+def test_hybrid_fisheye_step_on_card_matches_cpu(cuda):
+    """The toy fisheye step with the specular colour
+    (`utils/testing.fisheye_toy(hybrid=True)`), card against CPU."""
+    from bags_tpu_torch.train.calibrated import fisheye_train_step
+    from bags_tpu_torch.utils.testing import fisheye_toy
+
+    grads = _step_card_vs_cpu(
+        lambda dev, gt: fisheye_toy(dev, gt, hybrid=True),
+        lambda t, dev: fisheye_train_step(
+            t["state"], t["gt"], t["p_view"], 0, torch.zeros(3, device=dev),
+            t["setup"], RenderConfig(sh_degree=3), t["cfg"], t["schedules"],
+            True, True), cuda)
+    assert {".g.asg", ".spec.b3"} <= set(grads)
+
+
+def test_relocation_on_card_matches_cpu(cuda):
+    """`relocate_dead`, `add_new_gaussians` and `position_noise` on
+    `utils/testing.mcmc_toy` with the same injected draws on the card and
+    on the CPU: the counts, alive and both reset masks identical; every
+    entry of every relocated field within 1e-6 of itself (rtol 1e-6, atol
+    0); `position_noise` on the CPU's relocated population on both, each
+    noised position within 1e-6 of the scale of its rounding
+    (`noise_terms`): the noise is a sum of products that can cancel, and
+    its opacity gate's argument 100 ((1 - o) - 0.995) cancels too, so that
+    the last bit of the card's sigmoid moves it by more than 1e-6 of
+    itself."""
+    from bags_tpu_torch.utils.testing import mcmc_toy, run_mcmc_toy
+
+    cpu = run_mcmc_toy(mcmc_toy(torch.device("cpu")))
+    card = run_mcmc_toy(mcmc_toy(cuda), noise_input=cpu)
+    assert card["counts"] == cpu["counts"] == (40, 8)
+    for k in ("alive", "reset1", "reset2"):
+        assert torch.equal(card[k], cpu[k]), k
+    for k in ("xyz", "sh_dc", "sh_rest", "scales_log", "quats", "opacity_raw",
+              "asg"):
+        torch.testing.assert_close(card[k], cpu[k], rtol=1e-6, atol=0)
+    diff = (card["noised_xyz"] - cpu["noised_xyz"]).abs().double()
+    assert bool((diff <= 1e-6 * cpu["noise_terms"]).all()), float(
+        (diff / cpu["noise_terms"]).max())

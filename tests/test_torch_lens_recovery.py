@@ -42,7 +42,18 @@ N_CAMS, WH, N, FOCAL = 3, 48, 300, 18.0
 
 @pytest.fixture(scope="module")
 def jax_data():
-    return _make_dataset(n_cams=N_CAMS, wh=WH, n=N, focal=FOCAL)
+    """The JAX recovery test's dataset, its render and warp jitted (the same
+    functions; eagerly, each of their operations compiles on its own)."""
+    import jax
+    import test_lens_recovery
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(test_lens_recovery, "render", jax.jit(
+            test_lens_recovery.render, static_argnames=("static", "cfg")))
+        mp.setattr(test_lens_recovery, "apply_distortion", jax.jit(
+            test_lens_recovery.apply_distortion,
+            static_argnames=("grid_hw", "out_hw", "final_hw", "apply2gt")))
+        return _make_dataset(n_cams=N_CAMS, wh=WH, n=N, focal=FOCAL)
 
 
 @pytest.fixture(scope="module")
@@ -119,8 +130,11 @@ def test_five_recovery_steps_match_jax(jax_data):
         K, WH, WH, INIT_COEFF, iters=200, lr=3e-3)
     js = dataclasses.replace(js, lens=lens, lens_opt=txs["lens"][0].init(lens))
     step = jcal.make_fisheye_train_step(
+        # a tile holds at most one instance of each of the N Gaussians: the
+        # jnp compositor's per-tile scan stops at 320 (its default 4,096
+        # costs 13x the time for the same result)
         setup, JCfg(sh_degree=0, backend="jnp", precision="exact",
-                    max_instances=2 ** 14),
+                    max_instances=2 ** 14, max_per_tile=320),
         cfg, g_tx, txs, sh_degree=0, opt_lens=True, use_vignetting=False)
 
     tg, alive = convert.gaussians_from_numpy(

@@ -207,9 +207,13 @@ def test_gaussians_from_numpy(jax_gaussians):
     with pytest.raises(KeyError, match="missing"):
         convert.gaussians_from_numpy({"xyz": d["xyz"], "alive": d["alive"]},
                                      device="cpu")
-    with pytest.raises(KeyError, match="not ported"):   # --hybrid features
-        convert.gaussians_from_numpy({**d, "asg": np.zeros((512, 24))},
+    with pytest.raises(KeyError, match="not ported"):
+        convert.gaussians_from_numpy({**d, "rgb": np.zeros((512, 3))},
                                      device="cpu")
+    assert tgs.asg is None
+    asg = np.random.default_rng(4).normal(size=(512, 24)).astype(np.float32)
+    hyb, _ = convert.gaussians_from_numpy({**d, "asg": asg}, device="cpu")
+    np.testing.assert_array_equal(hyb.asg.numpy(), asg)   # --hybrid features
 
 
 def test_scene_matches_jax(tmp_path):

@@ -435,7 +435,10 @@ def toy_training():
                                   r_t_lr=(0.003, 0.003)),
         max_instances=2 ** 14)
     cfg.model.sh_degree = 1
-    rcfg = JCfg(sh_degree=1, backend="jnp", max_instances=2 ** 14)
+    # a tile holds at most one instance of each of the 256 slots: the jnp
+    # compositor's per-tile scan stops there (its default 4,096 costs 16x)
+    rcfg = JCfg(sh_degree=1, backend="jnp", max_instances=2 ** 14,
+                max_per_tile=cap)
     state, g_tx, align_tx, _ = jloop.init_train_state(g, alive, batched, cfg, 3.0)
     step = jloop.make_train_step(static, rcfg, cfg, g_tx, align_tx, 1)
     return dict(state=state, step=step, gt=np.stack(gt), cfg=cfg, static=static)

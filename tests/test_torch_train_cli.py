@@ -239,9 +239,8 @@ def test_render_cli_optimises_test_poses(trained, dataset, capsys):
 
 
 @pytest.mark.parametrize("flag, slice_", [
-    (["--vis_pose"], "slice 5"), (["--hybrid"], "slice 5"),
-    (["--mcmc"], "slice 5"), (["--batch_cams", "2"], "slice 5"),
-    (["--gui"], "slice 5")])
+    (["--vis_pose"], "slice 5"), (["--mesh", "1"], "slice 5"),
+    (["--batch_cams", "2"], "slice 5"), (["--gui"], "slice 5")])
 def test_train_cli_refuses_unported_paths(tmp_path, dataset, flag, slice_):
     with pytest.raises(NotImplementedError, match=slice_):
         train_cli.main(["-s", dataset, "-m", str(tmp_path / "m"), "--device", "cpu"]
