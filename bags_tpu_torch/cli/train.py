@@ -7,8 +7,10 @@ Writes `cfg.json`, `point_cloud/iteration_{it}/point_cloud.ply` at
 `--save_iterations`, `chkpnt{it}.npz` at `--checkpoint_iterations`,
 `metrics.jsonl` every 10 iterations and `evaluation_results.txt` at
 `--test_iterations` (the test split and the first 5 train views: L1, PSNR,
-SSIM, LPIPS n/a, and with `--opt_cam` the pose error). `--start_checkpoint`
-resumes. Runs on `--device cuda` (the default) or `--device cpu`.
+SSIM and LPIPS (alex backbone, from local weights: `BAGS_TPU_LPIPS_WEIGHTS`;
+"n/a" without them), and with `--opt_cam` the pose error and the
+`poses_{it}.png` frusta plot). `--start_checkpoint` resumes. Runs on
+`--device cuda` (the default) or `--device cpu`.
 
 `--outside_rasterizer` (`--preset fisheye`) trains the fisheye mode
 (`train/calibrated.py::CalibTrainer`): the render at the extended FoV
@@ -24,9 +26,12 @@ evaluation stitches the five faces. `--mcmc` (`--preset fisheye_mcmc`)
 replaces densification by MCMC relocation and growth at the densification
 interval and position noise every step; `--hybrid` adds the ASG specular
 colour to every mode's render (the plain evaluation leaves it out, as the
-JAX CLI does; the fisheye and cubemap evaluations include it). The
-multi-GPU and batched-camera paths, `--gui` and `--vis_pose` are later
-work of the port and raise `NotImplementedError`.
+JAX CLI does; the fisheye and cubemap evaluations include it). `--gui`
+serves the SIBR network viewer on `--ip`:`--port` (polled every
+iteration, frames rendered from the current state at the viewer's
+camera); `--vis_pose` pushes the pose frusta to a visdom server every
+`VIS_POSE_EVERY` iterations. The multi-GPU and batched-camera paths are
+later work of the port and raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -40,11 +45,9 @@ import time
 import numpy as np
 import torch
 
-# Switches of paths this slice has not ported -> their ROADMAP.md item.
-UNPORTED = {
-    "gui": "Queue 1 #13, slice 5 (network viewer)",
-    "vis_pose": "Queue 1 #13, slice 5 (pose plots)",
-}
+# iterations between two pose plots pushed to the visdom server (the
+# reference's cadence, train.py:344-346)
+VIS_POSE_EVERY = 500
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -197,11 +200,6 @@ def args_to_config(args):
     )
 
 
-def _refuse(name: str):
-    raise NotImplementedError(
-        f"--{name} is not ported yet: ROADMAP.md {UNPORTED[name]}")
-
-
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a configuration that takes a path this
     slice of the port does not have, naming its ROADMAP.md item."""
@@ -255,6 +253,23 @@ def build_scene_and_trainer(cfg, device):
         fish_images=scene.fish_image if info0.fish_image_path else None)
 
 
+@torch.no_grad()
+def viewer_render(trainer, req: dict) -> torch.Tensor:
+    """The network viewer's frame (3, H, W): the trainer's current state
+    rendered at the request's camera and size, at the active SH degree,
+    with the trainer's background and the global alignment."""
+    from ..eval.network_gui import request_to_camera
+    from ..raster.render import RenderConfig, render
+
+    st = trainer.base
+    g = st.g
+    cam, static = request_to_camera(req, g.xyz.device)
+    return render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
+                  g.sh_coeffs(), cam, static,
+                  RenderConfig(sh_degree=trainer.active_sh_degree),
+                  bg=trainer.bg, align=st.align).render
+
+
 def main(argv=None) -> dict:
     """Run the CLI. Returns {"losses": [...] and "step_s": [...] (host
     seconds of the iteration, its evaluation and saving left out) per
@@ -267,15 +282,12 @@ def main(argv=None) -> dict:
 
     argv = apply_preset(list(argv if argv is not None else sys.argv[1:]))
     args = build_parser().parse_args(argv)
-    for name in ("gui", "vis_pose"):
-        if getattr(args, name):
-            _refuse(name)
     if args.wandb_project_name is not None:
         print("the wandb mirror is not ported: metrics go to metrics.jsonl")
     cfg = args_to_config(args)
     check_ported(cfg)
 
-    from ..eval.metrics import psnr
+    from ..eval.metrics import Lpips, psnr
     from ..eval.pose_eval import align_and_pose_error
     from ..model.gaussians import save_ply
     from ..raster.render import RenderConfig, render
@@ -315,6 +327,9 @@ def main(argv=None) -> dict:
         print(f"resumed from {args.start_checkpoint} at step "
               f"{trainer.base.step}")
 
+    # in-loop LPIPS on the alex backbone, as the reference's
+    # (lpipsPyTorch/__init__.py:8); the metrics CLI takes vgg
+    lpips_fn = Lpips(net="alex").to(device)
     logger = MetricsLogger(args.model_path)
     eval_file = os.path.join(args.model_path, "evaluation_results.txt")
     summary = {"losses": [], "step_s": [], "densify": trainer.densify_log,
@@ -347,17 +362,20 @@ def main(argv=None) -> dict:
         lines, img = [], None
         for split, cams, n in (("test", scene.test_cams, scene.n_test),
                                ("train", st.cams, min(5, scene.n_train))):
-            l1s, psnrs, ssims = [], [], []
+            l1s, psnrs, ssims, lpipss = [], [], [], []
             for i in range(n):
                 img, gt_img = eval_view(split, cams, i)
                 summary["eval_renders"] += 1
                 l1s.append(float(torch.mean(torch.abs(img - gt_img))))
                 psnrs.append(float(psnr(img, gt_img)))
                 ssims.append(float(ssim(img, gt_img)))
+                if lpips_fn.available:
+                    lpipss.append(float(lpips_fn(img, gt_img)))
             if l1s:
+                lp = f"{np.mean(lpipss):.5f}" if lpipss else "n/a"
                 lines.append(f"[ITER {it}] Evaluating {split}: "
                              f"L1 {np.mean(l1s):.5f} PSNR {np.mean(psnrs):.3f} "
-                             f"SSIM {np.mean(ssims):.5f} LPIPS n/a")
+                             f"SSIM {np.mean(ssims):.5f} LPIPS {lp}")
         if img is not None:
             save_png(os.path.join(args.model_path, f"render_{it}.png"), img)
         if args.opt_cam:
@@ -365,11 +383,32 @@ def main(argv=None) -> dict:
             lines.append(f"[ITER {it}] pose error: "
                          f"rot {err['rotation_deg_mean']:.4f} deg, "
                          f"trans {err['translation_mean']:.5f}")
+            # the pose frusta, the reference's in-training pose plots
+            try:
+                from ..eval.vis import plot_poses
+                plot_poses(st.cams, scene.train_cams_clean,
+                           path=os.path.join(args.model_path,
+                                             f"poses_{it}.png"))
+            except ImportError as e:
+                print(f"poses_{it}.png not written: {e}")
         for line in lines:
             print(line)
         with open(eval_file, "a") as f:
             f.write("\n".join(lines) + "\n")
         summary["eval"].extend(lines)
+
+    gui = vis_client = None
+    if args.gui:
+        from ..eval.network_gui import NetworkGUI
+        try:
+            gui = NetworkGUI(args.ip, args.port)
+            print(f"network GUI listening on {args.ip}:{args.port}")
+        except OSError as e:          # the address is taken, as in JAX's CLI
+            print(f"network GUI unavailable ({e}); continuing without")
+
+    if args.vis_pose:
+        from ..eval.vis import VisdomClient
+        vis_client = VisdomClient(args.visdom_server, args.visdom_port)
 
     last = [time.perf_counter()]
 
@@ -377,6 +416,16 @@ def main(argv=None) -> dict:
         summary["losses"].append(float(metrics.loss))   # waits for the step
         now = time.perf_counter()
         summary["step_s"].append(now - last[0])
+        if gui is not None:
+            gui.poll(lambda req: viewer_render(trainer, req), args.source_path,
+                     training_done=it >= args.iterations)
+        if vis_client is not None and it % VIS_POSE_EVERY == 0:
+            # live pose frusta to the visdom server (train.py:344-346)
+            if not vis_client.plot_cameras(it, trainer.base.cams,
+                                           scene.train_cams_clean) \
+                    and it == VIS_POSE_EVERY:
+                print(f"visdom server {vis_client.url} unreachable; live "
+                      "pose plots disabled for this run")
         if it % 10 == 0:
             logger.log(it, loss=metrics.loss, l1=metrics.l1,
                        n_alive=metrics.n_alive, n_dropped=metrics.n_dropped)
@@ -401,6 +450,8 @@ def main(argv=None) -> dict:
     finally:
         trainer.close()
         logger.close()
+        if gui is not None:
+            gui.close()
     for it, cloned, split, pruned, before, after in trainer.densify_log:
         print(f"[ITER {it}] densify: cloned {cloned}, split {split}, pruned "
               f"{pruned}, alive {before} -> {after}")

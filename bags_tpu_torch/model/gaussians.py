@@ -101,13 +101,15 @@ def create_from_points(points: np.ndarray, colors: np.ndarray, capacity: int,
 
 def mean_sq_dist_knn3(points: np.ndarray) -> np.ndarray:
     """Mean squared distance to the 3 nearest neighbours (host-side, at
-    initialization only): scipy's cKDTree, else blocked numpy."""
+    initialization only): scipy's cKDTree, its queries spread over every
+    core (the same neighbours; on one core they were half of a 1M-point
+    scene's set-up), else blocked numpy."""
     try:
         from scipy.spatial import cKDTree
     except ImportError:
         cKDTree = None
     if cKDTree is not None:
-        d, _ = cKDTree(points).query(points, k=4)  # self + 3 neighbours
+        d, _ = cKDTree(points).query(points, k=4, workers=-1)  # self + 3
         return (d[:, 1:] ** 2).mean(axis=1).astype(np.float32)
     n = points.shape[0]
     out = np.empty(n, np.float32)

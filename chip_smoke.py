@@ -161,7 +161,27 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      regularisers, the specular colour's forward and backward alone,
      `mcmc_step`, `mcmc_noise_step`, the step over 5 steps, the peak
      memory), beside step 9's split of the plain pose step;
- 15. prints the kernels line (JSON: the forward, the backward, the
+ 15. slice 5's evaluation tools, on the models steps 6, 8 and 14b left:
+     (a) the trajectory CLI on step 6's model, restored once: sequential
+     (one frame per optimised train camera), spiral (4 frames) and a
+     150-degree panorama (2 poses): one forward launch a frame (five a
+     panorama frame), no backward launch, frames 1600x1080 and finite,
+     and the sequential frame 0 against `render` at the optimised camera
+     0 (at most 1e-4 of its 8-bit values more than one level off); (b) 4
+     orbit frames of step 14b's `fisheye_mcmc --hybrid` model through the
+     lens warp with the specular colour, at the fisheye sensor's size;
+     (c) the network viewer on a free local port: a client's two SIBR
+     requests at 1600x1080, one forward launch each, each frame's bytes
+     equal to the train CLI's `viewer_render` at its camera; (d) the
+     metrics CLI over step 8's renders with seeded full-width LPIPS
+     weights (torchvision vgg16 and LPIPS layouts): the JAX CLI's keys,
+     finite values, one view's LPIPS on the card against the CPU on a
+     256x256 crop (rtol 1e-4), its time at 1600x1080, and `plot_poses`
+     run or skipped where matplotlib is absent; (e) `cli.bench` (default
+     and `--large`) and `cli.bench_calib` (both modes): one JSON line
+     each, one forward and one backward launch a step, pixels/s beside
+     the card's name and power limit; then every step's seconds;
+ 16. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
      every variant's under "variants"; the forward's and the backward's
      launches by path, fisheye, cubemap, recovery and slice 5's paths
@@ -2087,6 +2107,320 @@ def recovery_path():
     return fwd, bwd
 
 
+# Step 15: slice 5's second part, the evaluation tools, on the models that
+# steps 6, 8 and 14b left under WORK. The sequential path runs one frame
+# per optimised train camera (7 of the 8 with --eval).
+SEQ_FRAMES = 7
+VGG16_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+
+
+def trajectory_runs(model, data, runs, device, trained=None):
+    """The trajectory CLI on `model`, once per (name, argv, forward launches
+    a frame) of `runs` (the model restored once, or `trained` given).
+    Checks each run's launches, no backward launch, finite frames of the
+    expected size. Returns ({name: summary}, {name: forward launches})."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.cli import render_trajectory as traj_cli
+    from bags_tpu_torch.raster import composite
+
+    t0 = time.perf_counter()
+    if trained is None:
+        trained = render_cli.restore_trained(model, data, -1, device)
+    print(f"trajectory: restored {model} in {time.perf_counter() - t0:.1f} s")
+    outs, launches = {}, {}
+    for name, argv, per_frame, size in runs:
+        composite.fwd_launches = composite.bwd_launches = 0
+        out = traj_cli.main(["-m", model, "-s", data, "--device", "cuda", "--out",
+                             os.path.join(WORK, f"trajectory_{name}")] + argv,
+                            trained=trained)
+        fwd, bwd = composite.fwd_launches, composite.bwd_launches
+        frames = sorted(f for f in os.listdir(out["dir"]) if f.endswith(".png"))
+        shapes = {np.asarray(Image.open(os.path.join(out["dir"], f))).shape
+                  for f in (frames[0], frames[-1])}
+        print(f"trajectory {name}: {out['frames']} frames {shapes}, forward "
+              f"launches {fwd}, lens warp {out['lens_warp']}, specular "
+              f"{out['specular']}, ms a frame: render "
+              + " ".join(f"{1e3 * s:.1f}" for s in out["render_s"]) + ", PNG "
+              + " ".join(f"{1e3 * s:.1f}" for s in out["png_s"]))
+        check(len(frames) == out["frames"] > 0, f"{name}: {len(frames)} PNGs")
+        check(fwd == per_frame * out["frames"],
+              f"{name}: {fwd} forward launches for {out['frames']} frames")
+        check(bwd == 0, f"{name}: {bwd} backward launches")
+        check(out["finite"], f"{name}: a non-finite frame")
+        check(shapes == {size + (3,)}, f"{name}: frames {shapes}, not {size}")
+        outs[name], launches[name] = out, fwd
+    torch.cuda.synchronize()
+    return trained, outs, launches
+
+
+def trajectory_path(model, data, device):
+    """Step 15a: trajectories on step 6's model: sequential (one frame per
+    optimised train camera), spiral (4 frames) and a 150-degree panorama (2
+    poses, five face renders each), frames 1600x1080, no lens warp and no
+    specular colour; the sequential frame 0 against `render` at the
+    optimised camera 0, as 8-bit values: at most 1e-4 of them more than one
+    level off (the path camera is the optimised one through a rotation
+    matrix and back). Returns (the restored model, {run: forward
+    launches}, {run: summary})."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from bags_tpu_torch.raster.render import RenderConfig, render
+
+    size = (HEIGHT, WIDTH)
+    trained, outs, launches = trajectory_runs(model, data, [
+        ("sequential", ["--mode", "sequential", "--n_frames", str(SEQ_FRAMES)], 1, size),
+        ("spiral", ["--mode", "spiral", "--n_frames", "4"], 1, size),
+        ("panorama", ["--panorama_fov", "150", "--n_frames", "2"], 5, size)], device)
+    check(outs["sequential"]["frames"] == SEQ_FRAMES,
+          f"{outs['sequential']['frames']} sequential frames")
+    check(not any(o["lens_warp"] or o["specular"] for o in outs.values()),
+          "a lens warp or specular colour on the pose model")
+    cfg, scene, state, _, _ = trained
+    g = state.g
+    with torch.no_grad():
+        img = render(g.xyz, g.scaling(), g.quats, g.opacity(state.alive),
+                     g.sh_coeffs(), state.cams[0], scene.static,
+                     RenderConfig(sh_degree=cfg.model.sh_degree),
+                     bg=torch.full((3,), float(cfg.model.white_background),
+                                   device=device), align=state.align).render
+    want = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8).transpose(1, 2, 0)
+    got = np.asarray(Image.open(os.path.join(outs["sequential"]["dir"], "00000.png")))
+    diff = np.abs(got.astype(np.int16) - want)
+    off = float((diff > 1).mean())
+    print(f"trajectory sequential frame 0 against the optimised camera 0: max "
+          f"{int(diff.max())} levels, {off:.2e} of the values more than one off")
+    check(off <= 1e-4, f"sequential frame 0: {off:.2e} of the values off")
+    return trained, launches, outs
+
+
+def fisheye_trajectory_path(model, data, device):
+    """Step 15b: 4 orbit frames on step 14b's `fisheye_mcmc --hybrid` model:
+    through the lens warp, with the specular colour, at the fisheye
+    sensor's size (`fish/images`). Returns the forward launches."""
+    import numpy as np
+    from PIL import Image
+
+    name = sorted(os.listdir(os.path.join(data, "fish", "images")))[0]
+    size = np.asarray(Image.open(os.path.join(data, "fish", "images", name))).shape[:2]
+    trained, outs, launches = trajectory_runs(
+        model, data, [("fisheye_orbit", ["--mode", "orbit", "--n_frames", "4"], 1,
+                       size)], device)
+    out = outs["fisheye_orbit"]
+    check(out["lens_warp"] and out["specular"],
+          "the fisheye frames skipped the lens warp or the specular colour")
+    del trained
+    return launches["fisheye_orbit"]
+
+
+def viewer_request(cam, width, height):
+    """A SIBR request for camera `cam` as the viewer sends it: the w2c
+    matrix transposed, its y / z columns flipped."""
+    import numpy as np
+    from bags_tpu_torch.core.camera import pose_w2c
+
+    R, t = (x.detach().cpu().numpy().astype(np.float64) for x in pose_w2c(cam))
+    w2c = np.eye(4)
+    w2c[:3, :3], w2c[:3, 3] = R, t
+    view = w2c.T.copy()
+    view[:, 1] *= -1
+    view[:, 2] *= -1
+    return dict(resolution_x=width, resolution_y=height,
+                      fov_x=float(cam.fovx), fov_y=float(cam.fovy), z_near=0.01,
+                      z_far=100.0, shs_python=False, rot_scale_python=False,
+                      scaling_modifier=1.0, keep_alive=False,
+                      view_matrix=view.reshape(-1).tolist(),
+                      view_projection_matrix=np.eye(4).reshape(-1).tolist())
+
+
+def viewer_path(trained, device):
+    """Step 15c: the network viewer (`eval/network_gui.NetworkGUI` on a free
+    local port) against step 6's model: a client thread sends two SIBR
+    requests at 1600x1080 (train cameras 0 and 1; the second asks training
+    to go on), one poll serves both through the train CLI's
+    `viewer_render`: one forward launch a frame, and each frame's bytes
+    equal to `viewer_render` at that request's camera. Returns the
+    forward launches."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    from bags_tpu_torch.cli.train import viewer_render
+    from bags_tpu_torch.eval.network_gui import NetworkGUI
+    from bags_tpu_torch.raster import composite
+
+    _, _, state, _, trainer = trained
+    msgs = []
+    for i, train in ((0, False), (1, True)):
+        msgs.append(dict(viewer_request(state.cams[i], WIDTH, HEIGHT), train=train))
+    frames, connected = [], threading.Event()
+    n_bytes = WIDTH * HEIGHT * 3
+
+    def client(port):
+        with socket.create_connection(("127.0.0.1", port), timeout=120) as c:
+            connected.set()
+            for msg in msgs:
+                data = json.dumps(msg).encode()
+                c.sendall(len(data).to_bytes(4, "little") + data)
+                buf = b""
+                while len(buf) < n_bytes + 4 + len("chip_smoke"):
+                    chunk = c.recv(1 << 20)
+                    check(chunk, "the viewer connection closed early")
+                    buf += chunk
+                frames.append(buf[:n_bytes])
+
+    gui = NetworkGUI("127.0.0.1", 0)
+    thread = threading.Thread(target=client, args=(gui.listener.getsockname()[1],))
+    thread.start()
+    check(connected.wait(60), "the viewer client did not connect")
+    reqs = []
+
+    def render_fn(req):
+        reqs.append(req)
+        return viewer_render(trainer, req)
+
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    gui.poll(render_fn, "chip_smoke", training_done=False)
+    thread.join(timeout=120)
+    secs = time.perf_counter() - t0
+    fwd = composite.fwd_launches
+    gui.close()
+    check(not thread.is_alive() and len(frames) == 2, f"{len(frames)} frames served")
+    check(fwd == 2, f"{fwd} forward launches for 2 viewer frames")
+    for req, frame in zip(reqs, frames):
+        img = torch.clamp(viewer_render(trainer, req), 0, 1).cpu().numpy()
+        want = (img * 255).astype(np.uint8).transpose(1, 2, 0).tobytes()
+        check(frame == want, "a served frame is not the render at its camera")
+    print(f"viewer: 2 frames at {WIDTH}x{HEIGHT} served in {secs:.2f} s, forward "
+          f"launches {fwd}, bytes equal to the render at each request's camera")
+    return fwd
+
+
+def write_lpips_dir(root):
+    """Seeded random LPIPS weights at full widths in the upstream layouts:
+    a torchvision vgg16 backbone (He-scaled normal convs, zero biases) and
+    an LPIPS v0.1 `vgg.pth` (non-negative linear weights)."""
+    import numpy as np
+    import torch
+    from bags_tpu_torch.eval.lpips_weights import VGG16_CONV_IDX
+
+    rng = np.random.default_rng(15)
+    sd, c_in = {}, 3
+    for idx, c in zip(VGG16_CONV_IDX, VGG16_WIDTHS):
+        sd[f"features.{idx}.weight"] = torch.as_tensor(rng.normal(
+            0, np.sqrt(2.0 / (9 * c_in)), (c, c_in, 3, 3)).astype(np.float32))
+        sd[f"features.{idx}.bias"] = torch.zeros(c)
+        c_in = c
+    lin = {f"lin{k}.model.1.weight": torch.as_tensor(np.abs(rng.normal(
+        0, 0.1, (1, c, 1, 1))).astype(np.float32))
+        for k, c in enumerate(VGG16_WIDTHS[i] for i in (1, 3, 6, 9, 12))}
+    os.makedirs(root, exist_ok=True)
+    torch.save(sd, os.path.join(root, "vgg16-397923af.pth"))
+    torch.save(lin, os.path.join(root, "vgg.pth"))
+    return root
+
+
+def metrics_path(trained, model, device):
+    """Step 15d: the metrics CLI over step 8's render output of step 6's
+    model, LPIPS from `write_lpips_dir`'s weights: both splits' PSNR, SSIM
+    and LPIPS finite under the JAX CLI's keys; one view's LPIPS on the card
+    against the CPU on a 256x256 crop (rtol 1e-4); the LPIPS time of a
+    1600x1080 pair; then `plot_poses` on the model's cameras, run or
+    skipped where matplotlib is absent. Returns (card ms, CPU-crop
+    relative error)."""
+    import math
+
+    import torch
+    from bags_tpu_torch.cli import metrics as metrics_cli
+    from bags_tpu_torch.eval.metrics import Lpips
+    from bags_tpu_torch.eval.vis import plot_poses
+    from bags_tpu_torch.utils.profiling import timed
+
+    weights = write_lpips_dir(os.path.join(WORK, "lpips"))
+    os.environ["BAGS_TPU_LPIPS_WEIGHTS"] = weights
+    try:
+        t0 = time.perf_counter()
+        results = metrics_cli.main(["-m", model, "--device", "cuda"])[model]
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["BAGS_TPU_LPIPS_WEIGHTS"]
+    with open(os.path.join(model, "per_view.json")) as f:
+        per_view = json.load(f)
+    print(f"metrics CLI: {secs:.1f} s, " + json.dumps(results))
+    check(sorted(results) == sorted(per_view) == ["test/ours_30", "train/ours_30"],
+          f"metrics keys {sorted(results)}")
+    for key, vals in results.items():
+        check(list(vals) == ["PSNR", "SSIM", "LPIPS"], f"{key}: {list(vals)}")
+        check(all(isinstance(v, float) and math.isfinite(v) for v in vals.values()),
+              f"{key}: {vals}")
+        check(all(math.isfinite(v) for m in per_view[key].values() for v in m.values()),
+              f"{key}: a non-finite per-view value")
+
+    view = os.path.join(model, "test", "ours_30")
+    r, g = (metrics_cli.load_image(os.path.join(view, sub, "00000.png"), device)
+            for sub in ("renders", "gt"))
+    lp_card = Lpips(weights, net="vgg").to(device)
+    with torch.no_grad():
+        ms = timed(lambda: lp_card(r, g), device, 5)
+        h, w = r.shape[1:]                 # the centred 256x256 crop
+        crop = (slice(None), slice(max(h // 2 - 128, 0), h // 2 + 128),
+                slice(max(w // 2 - 128, 0), w // 2 + 128))
+        card = float(lp_card(r[crop], g[crop]))
+        cpu = float(Lpips(weights, net="vgg")(r[crop].cpu(), g[crop].cpu()))
+    rel = abs(card - cpu) / abs(cpu)
+    print(f"LPIPS vgg at {WIDTH}x{HEIGHT}: {ms:.2f} ms on the card; 256x256 crop "
+          f"card {card:.7f} CPU {cpu:.7f}, relative difference {rel:.2e}")
+    check(rel <= 1e-4, f"LPIPS card against CPU: {rel:.2e}")
+
+    _, scene, state, _, _ = trained
+    path = os.path.join(WORK, "poses.png")
+    try:
+        plot_poses(state.cams, scene.train_cams_clean, path=path)
+        print(f"plot_poses: wrote {os.path.getsize(path)} bytes")
+    except ImportError as e:
+        print(f"plot_poses: skipped, matplotlib is absent ({e})")
+    return ms, rel
+
+
+def bench_path(smi):
+    """Step 15e: `cli.bench` (default and `--large`) and `cli.bench_calib`
+    (fisheye and cubemap at their defaults) in-process. Checks one JSON
+    line each with the keys and a positive rate, and the launches: one
+    forward and one backward a step (21 for the bench, 11 for each
+    bench_calib mode, five of each a cubemap step). Returns ({line's
+    metric: line}, {path: (forward, backward) launches})."""
+    from bags_tpu_torch.cli import bench as bench_cli
+    from bags_tpu_torch.cli import bench_calib as bench_calib_cli
+    from bags_tpu_torch.raster import composite
+
+    lines, launches = {}, {}
+    runs = [("bench", lambda: [bench_cli.main()], bench_cli.ITERS + 1),
+            ("bench_large", lambda: [bench_cli.main(large=True)], bench_cli.ITERS + 1),
+            ("bench_calib_fisheye", lambda: bench_calib_cli.main(
+                ["--mode", "fisheye", "--device", "cuda"]), 11),
+            ("bench_calib_cubemap", lambda: bench_calib_cli.main(
+                ["--mode", "cubemap", "--device", "cuda"]), 5 * 11)]
+    for name, run, steps in runs:
+        composite.fwd_launches = composite.bwd_launches = 0
+        t0 = time.perf_counter()
+        [line] = run()
+        secs = time.perf_counter() - t0
+        fwd, bwd = composite.fwd_launches, composite.bwd_launches
+        print(f"{name}: {line['value']} pixels/s ({smi}), {secs:.1f} s, "
+              f"forward launches {fwd}, backward launches {bwd}")
+        check(sorted(line) == ["metric", "precision", "unit", "value", "vs_baseline"]
+              and line["value"] > 0 and line["precision"] == "exact", f"{name}: {line}")
+        check(fwd == bwd == steps, f"{name}: {fwd} forward and {bwd} backward "
+                                   f"launches for {steps}")
+        lines[line["metric"]] = line
+        launches[name] = (fwd, bwd)
+    return lines, launches
+
 def main():
     import torch
 
@@ -2102,6 +2436,14 @@ def main():
 
     device = torch.device("cuda")
     t_all = time.perf_counter()
+    step_s, last = {}, [t_all]
+
+    def lap(step):
+        """Seconds since the previous lap, as step `step`'s."""
+        now = time.perf_counter()
+        step_s[step] = round(now - last[0], 1)
+        last[0] = now
+
     # 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2109,6 +2451,7 @@ def main():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    lap(1)
 
     # 2. build the three kernel sources, in parallel
     t0 = time.perf_counter()
@@ -2124,13 +2467,16 @@ def main():
         print(f"{name} resources: {composite.kernel_info(name)}")
     for name in ka.MODES + ka.VARIANTS:
         print(f"kernablate {name} resources: {ka.kernel_info(name)}")
+    lap(2)
 
     # 3. the kernels against their plain versions at test sizes
     test_size_checks(device)
     variants_test = ablation_test_size(device)
+    lap(3)
     # 4. camera gradients on the card, pose recovery
     camera_grad_check(device)
     pose_recovery(device)
+    lap(4)
 
     # 5. the render path at full width (slice 1)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2142,11 +2488,13 @@ def main():
     del scene
     ablate_entry, fori_entry = ablation_full_width(view0, fwd_entry)
     del view0
+    lap(5)
 
     # 6. the training path at full width
     train_model, train_fwd, train_bwd = train_path(data)
     fwd_entry["launches"] = train_fwd
     fwd_entry["launches_by_path"]["train_cli"] = train_fwd
+    lap(6)
 
     # 7. the backward kernel at full width on the trained model
     # the trainer (the fifth value) is not kept: `del state` below frees the model
@@ -2157,11 +2505,14 @@ def main():
     variants = fori_entry["variants"]
     merge_variants(variants, variants_test)
     merge_variants(variants, train_view_variants(state, scene), "_train_view0")
+    lap(7)
     # 8. restore in the render CLI, test-time pose optimisation
     restore_path(train_model, data)
+    lap(8)
     # 9. where a training step's time goes
     stagebench.train_step_stages(state, scene, cfg, device)
     del state, scene
+    lap(9)
     # 10. this slice's main path: the profiling tools
     launches = tools_path(device)
     errs = tools_workload_checks(device)
@@ -2182,6 +2533,7 @@ def main():
         m: launches["kernablate"][f"composite_ablate:{m}"] for m in ka.MODES}
     ablate_entry["launches"] = sum(ablate_entry["launches_by_mode"].values())
     fori_entry["launches"] = launches["kernablate_real"]["composite_fwd_fori"]
+    lap(10)
 
     # 11. slice 4's main path: fisheye lens calibration at full width
     print(f"step 10 done at {time.perf_counter() - t_all:.1f} s")
@@ -2198,6 +2550,7 @@ def main():
     fwd_entry.update(fish_fwd_view)
     bwd_entry.update(fish_bwd_view)
     print(f"step 11 done at {time.perf_counter() - t_all:.1f} s")
+    lap(11)
 
     # 12. slice 4's cubemap path at full width
     t0 = time.perf_counter()
@@ -2213,6 +2566,7 @@ def main():
     fwd_entry.update(cube_fwd_faces)
     bwd_entry.update(cube_bwd_faces)
     print(f"step 12 took {time.perf_counter() - t0:.1f} s")
+    lap(12)
 
     # 13. known-lens recovery
     t0 = time.perf_counter()
@@ -2220,6 +2574,7 @@ def main():
     fwd_entry["launches_by_path"]["lens_recovery"] = rec_fwd
     bwd_entry["launches_by_path"]["lens_recovery"] = rec_bwd
     print(f"step 13 took {time.perf_counter() - t0:.1f} s")
+    lap(13)
 
     # 14. slice 5's main path: MCMC and the hybrid specular colour
     t0 = time.perf_counter()
@@ -2243,9 +2598,35 @@ def main():
     fwd_entry["launches_by_path"]["render_cli_pose_mcmc_hybrid"] = pose_render
     print(f"step 14d took {time.perf_counter() - t1:.1f} s; step 14 took "
           f"{time.perf_counter() - t0:.1f} s")
+    lap(14)
 
-    # 15. the kernels line, then the device line
+    # 15. slice 5's second part: the evaluation tools on the trained models
+    t1 = time.perf_counter()
+    trained, traj_fwd, _ = trajectory_path(train_model, data, device)
+    print(f"step 15a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    traj_fwd["fisheye_mcmc_hybrid"] = fisheye_trajectory_path(mcmc_model, data, device)
+    print(f"step 15b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    fwd_entry["launches_by_path"]["viewer"] = viewer_path(trained, device)
+    for name, n in traj_fwd.items():
+        fwd_entry["launches_by_path"][f"trajectory_{name}"] = n
+    print(f"step 15c took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    metrics_path(trained, train_model, device)
+    del trained
+    print(f"step 15d took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    _, bench_launches = bench_path(smi)
+    for name, (fwd, bwd) in bench_launches.items():
+        fwd_entry["launches_by_path"][name] = fwd
+        bwd_entry["launches_by_path"][name] = bwd
+    print(f"step 15e took {time.perf_counter() - t1:.1f} s")
+    lap(15)
+
+    # 16. the kernels line, then the device line
     print(f"total {time.perf_counter() - t_all:.1f} s")
+    print("step seconds " + json.dumps(step_s))
     shutil.rmtree(WORK, ignore_errors=True)
     print(json.dumps({"kernels": [fwd_entry, bwd_entry, ablate_entry, fori_entry]}))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ JAX is not installed:
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -422,3 +423,65 @@ def test_relocation_on_card_matches_cpu(cuda):
     diff = (card["noised_xyz"] - cpu["noised_xyz"]).abs().double()
     assert bool((diff <= 1e-6 * cpu["noise_terms"]).all()), float(
         (diff / cpu["noise_terms"]).max())
+
+
+def test_lpips_on_card_matches_cpu(cuda, tmp_path):
+    """`eval/metrics.Lpips` (a seeded VGG16-layout bundle at tiny widths) on
+    the card against the CPU on the same seeded images: rtol 1e-4."""
+    from bags_tpu_torch.eval.lpips_weights import VGG16_CONV_IDX, convert_state_dicts
+    from bags_tpu_torch.eval.metrics import Lpips
+
+    rng = np.random.default_rng(3)
+    backbone, c_in = {}, 3
+    for idx in VGG16_CONV_IDX:
+        backbone[f"features.{idx}.weight"] = rng.normal(
+            0, np.sqrt(2 / (9 * c_in)), (8, c_in, 3, 3)).astype(np.float32)
+        backbone[f"features.{idx}.bias"] = np.zeros(8, np.float32)
+        c_in = 8
+    lin = {f"lin{k}.model.1.weight": np.abs(rng.normal(0, 0.1, (1, 8, 1, 1)))
+           for k in range(5)}
+    path = str(tmp_path / "vgg.npz")
+    np.savez(path, **convert_state_dicts(backbone, lin))
+    a = torch.as_tensor(rng.uniform(0, 1, (3, 96, 128)).astype(np.float32))
+    b = torch.clamp(a + 0.1 * torch.as_tensor(rng.normal(size=(3, 96, 128))
+                                              .astype(np.float32)), 0, 1)
+    with torch.no_grad():
+        cpu = float(Lpips(path)(a, b))
+        card = float(Lpips(path).to(cuda)(a.to(cuda), b.to(cuda)))
+    assert cpu > 0 and card == pytest.approx(cpu, rel=1e-4)
+
+
+def test_trajectory_frame_on_card_matches_cpu(cuda, tmp_path):
+    """One `cli.render_trajectory --ply_only` frame through the forward
+    kernel against the same frame on the CPU (the plain version): 8-bit
+    values within one level, one forward launch."""
+    from PIL import Image
+
+    from bags_tpu_torch.cli import render_trajectory as traj_cli
+    from bags_tpu_torch.model.gaussians import create_from_points, save_ply
+    from bags_tpu_torch.utils.testing import make_lookat_cameras, write_colmap_scene
+
+    rng = np.random.default_rng(4)
+    data, model = str(tmp_path / "data"), str(tmp_path / "model")
+    cams = make_lookat_cameras(3, 0.9, 0.7, device="cpu")
+    pts = rng.normal(size=(400, 3)) * 0.8 + [0.0, 0.0, 6.0]
+    write_colmap_scene(data, cams, 64, 48, 64 / (2 * np.tan(0.45)),
+                       48 / (2 * np.tan(0.35)), pts, rng.random((400, 3)),
+                       images=[np.zeros((48, 64, 3), np.uint8)] * 3)
+    g, alive = create_from_points(pts.astype(np.float32),
+                                  rng.random((400, 3)).astype(np.float32), 400, 1,
+                                  device="cpu")
+    ply = os.path.join(model, "point_cloud", "iteration_1")
+    os.makedirs(ply)
+    save_ply(os.path.join(ply, "point_cloud.ply"), g, alive)
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        composite.fwd_launches = 0
+        out = traj_cli.main(["-m", model, "-s", data, "--ply_only", "--sh_degree", "1",
+                             "--mode", "sequential", "--n_frames", "1", "--device", dev,
+                             "--out", str(tmp_path / dev)])
+        assert composite.fwd_launches == (out["frames"] if dev == "cuda" else 0)
+        frames[dev] = np.asarray(Image.open(os.path.join(out["dir"], "00000.png")),
+                                 np.int16)
+    assert np.abs(frames["cuda"] - frames["cpu"]).max() <= 1
+    assert frames["cpu"].mean() > 5, "nothing in view"
