@@ -1,7 +1,7 @@
 """bags_tpu_torch — the PyTorch / CUDA port of bags_tpu for NVIDIA Hopper.
 
 The port mirrors `bags_tpu`'s layout (`core/`, `raster/`, `model/`, `data/`,
-`eval/`, `utils/`) with plain functions on tensors and dataclasses of
+`eval/`, `utils/`, `dist/`) with plain functions on tensors and dataclasses of
 tensors in place of pytrees. It imports neither JAX nor `bags_tpu`; the
 parity tests (`tests/test_torch_*.py`) are the only code that imports both.
 

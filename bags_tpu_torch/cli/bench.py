@@ -17,8 +17,10 @@ host clock ending in `torch.cuda.synchronize()`.
 The port composites in float32 alone: the JAX bench's `fast` and `exact2`
 lines measure its bf16 split-term ladder, which the port does not have
 (ROADMAP "Not ported"), so only the exact line is printed and `precision`
-is "exact". `BAGS_TPU_BENCH_BATCH` > 1 (a camera batch a step) is
-ROADMAP Queue 1 #14 and raises.
+is "exact". `BAGS_TPU_BENCH_BATCH=K` > 1 times K views a step (the JAX
+bench's camera batch, bench.py:44-60): the workload's camera with dt moved
+by 1e-3 k for view k, the mean of the K losses, the gradients of the
+Gaussians and of every view's camera fields; pixels/s counts K x H x W.
 
 vs_baseline: the reference publishes no numbers (BASELINE.md), so the
 baseline constant is the throughput a stock CUDA 3DGS forward + backward
@@ -29,6 +31,7 @@ targets.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -62,10 +65,6 @@ def main(large: bool = False, batch_cams: int = 1, device=None,
     from ..utils.device import resolve_device
     from ..utils.testing import make_toy_scene
 
-    if batch_cams > 1:
-        raise NotImplementedError(
-            "BAGS_TPU_BENCH_BATCH > 1 (a camera batch a step) is not ported "
-            "yet: ROADMAP.md Queue 1 #14")
     device = resolve_device(device)
     n0, w0, h0, scale_range, metric = WORKLOADS["large" if large else "default"]
     width, height = width or w0, height or h0
@@ -73,17 +72,19 @@ def main(large: bool = False, batch_cams: int = 1, device=None,
                         seed=0, scale_range=scale_range, device=device)
     gauss = [sc[k].requires_grad_(True)
              for k in ("xyz", "scales", "quats", "opacity", "sh_coeffs")]
-    cam = sc["cam"]
-    cam_leaves = [getattr(cam, f).requires_grad_(True)
+    cams = [sc["cam"]] + [dataclasses.replace(sc["cam"], dt=sc["cam"].dt + 1e-3 * k)
+                          for k in range(1, batch_cams)]
+    cam_leaves = [getattr(cam, f).requires_grad_(True) for cam in cams
                   for f in ("q_init", "t_init", "dq", "dt", "fovx", "fovy")]
     cfg = RenderConfig(sh_degree=3)
     gt = torch.zeros((3, height, width), device=device)
 
     def step():
-        out = render(*gauss, cam, sc["static"], cfg)
-        loss = photometric_loss(out.render, gt)
+        outs = [render(*gauss, cam, sc["static"], cfg) for cam in cams]
+        losses = [photometric_loss(out.render, gt) for out in outs]
+        loss = losses[0] if len(losses) == 1 else torch.stack(losses).mean()
         torch.autograd.grad(loss, gauss + cam_leaves)
-        return out
+        return outs[0]
 
     out = step()                                   # warm-up
     print(f"instances {out.gauss_id.numel()}")
@@ -93,7 +94,8 @@ def main(large: bool = False, batch_cams: int = 1, device=None,
     for _ in range(iters):
         step()
     sync(device)
-    pixels_per_s = width * height * iters / (time.perf_counter() - t0)
+    pixels_per_s = batch_cams * width * height * iters / (
+        time.perf_counter() - t0)
     line = {
         "metric": metric,
         "value": round(pixels_per_s, 1),

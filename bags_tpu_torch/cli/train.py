@@ -30,13 +30,28 @@ JAX CLI does; the fisheye and cubemap evaluations include it). `--gui`
 serves the SIBR network viewer on `--ip`:`--port` (polled every
 iteration, frames rendered from the current state at the viewer's
 camera); `--vis_pose` pushes the pose frusta to a visdom server every
-`VIS_POSE_EVERY` iterations. The multi-GPU and batched-camera paths are
-later work of the port and raise `NotImplementedError`.
+`VIS_POSE_EVERY` iterations. `--batch_cams K` trains on K distinct
+views a step (the pose and fisheye modes; the cubemap mode refuses it, as
+in the JAX package).
+
+`--mesh N` trains tile-parallel over N ranks of `torch.distributed`
+(`dist/trainer.py::ShardedTrainer`; the pose mode, with or without
+`--hybrid` and `--mcmc`): one process per rank,
+
+    torchrun --nproc_per_node N -m bags_tpu_torch.cli.train ... --mesh N
+
+on N cards (NCCL), or a world of one started by the CLI itself without
+torchrun for `--mesh 1`; with `--device cpu` the ranks use gloo. Only rank
+0 writes the logs, PNGs, PLYs and checkpoints (one file, as a single
+device writes it; `--start_checkpoint` takes one from any process count).
+The fisheye and cubemap modes under a mesh are not ported yet and raise
+`NotImplementedError` (ROADMAP.md Queue 1 #14c).
 """
 
 from __future__ import annotations
 
 import argparse
+import builtins
 import json
 import os
 import sys
@@ -80,7 +95,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--densify_grad_threshold", type=float, default=0.0002)
     p.add_argument("--abs_densify_grad_threshold", type=float, default=0.0004)
     p.add_argument("--batch_cams", type=int, default=1,
-                   help="training views per iteration; only 1 is ported")
+                   help="training views per iteration (distinct cameras)")
     # calibration / pose flags
     p.add_argument("--opt_cam", action="store_true")
     p.add_argument("--opt_intrinsic", action="store_true")
@@ -125,7 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["fast", "exact"], help=port_note)
     p.add_argument("--max_instances", type=int, default=0, help=port_note)
     p.add_argument("--mesh", type=int, default=0,
-                   help="multi-device training; only 0 is ported")
+                   help="train tile-parallel over N torch.distributed ranks "
+                        "(dist/trainer.py); 0 = single-device")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--preset", default=None,
                    help="named hyperparameter preset (train/presets.py)")
@@ -203,12 +219,10 @@ def args_to_config(args):
 def check_ported(cfg) -> None:
     """Raise NotImplementedError for a configuration that takes a path this
     slice of the port does not have, naming its ROADMAP.md item."""
-    if cfg.mesh > 0:
-        raise NotImplementedError("--mesh > 0 is not ported yet: ROADMAP.md "
-                                  "Queue 1 #14, slice 5 (multi-GPU)")
-    if cfg.opt.batch_cams > 1:
-        raise NotImplementedError("--batch_cams > 1 is not ported yet: "
-                                  "ROADMAP.md Queue 1 #14, slice 5")
+    if cfg.mesh > 0 and (cfg.calib.outside_rasterizer or cfg.calib.cubemap):
+        raise NotImplementedError(
+            "--mesh with the fisheye or cubemap mode is not ported yet: "
+            "ROADMAP.md Queue 1 #14c (dist/calib.py)")
 
 
 def build_scene_and_trainer(cfg, device):
@@ -216,8 +230,10 @@ def build_scene_and_trainer(cfg, device):
     (possibly cfg.json-restored) TrainConfig; the render CLI rebuilds its
     checkpoint template with it. `--outside_rasterizer` or `--cubemap`
     gives a CalibTrainer, a fisheye one's fisheye size read from the first
-    training view's `fish/images` pair."""
+    training view's `fish/images` pair; `--mesh N` a ShardedTrainer over
+    the process group (`dist/trainer.init_distributed` first)."""
     from ..data.scene import Scene
+    from ..dist.trainer import ShardedTrainer
     from ..raster.render import RenderConfig
     from ..train.calibrated import CalibTrainer
     from ..train.loop import Trainer
@@ -234,7 +250,7 @@ def build_scene_and_trainer(cfg, device):
                   num_pts=cfg.model.num_init_points, device=device)
     rcfg = RenderConfig(sh_degree=cfg.model.sh_degree)
     if not (cfg.calib.outside_rasterizer or cfg.calib.cubemap):
-        return scene, Trainer(
+        return scene, (ShardedTrainer if cfg.mesh > 0 else Trainer)(
             scene.gaussians, scene.alive, scene.train_cams, scene.static, cfg,
             scene_extent=scene.cameras_extent, gt_images=scene.train_image,
             rcfg=rcfg, seed=cfg.seed)
@@ -254,17 +270,18 @@ def build_scene_and_trainer(cfg, device):
 
 
 @torch.no_grad()
-def viewer_render(trainer, req: dict) -> torch.Tensor:
+def viewer_render(trainer, req: dict, population=None) -> torch.Tensor:
     """The network viewer's frame (3, H, W): the trainer's current state
     rendered at the request's camera and size, at the active SH degree,
-    with the trainer's background and the global alignment."""
+    with the trainer's background and the global alignment. population:
+    (Gaussians, alive), by default `trainer.population()`."""
     from ..eval.network_gui import request_to_camera
     from ..raster.render import RenderConfig, render
 
     st = trainer.base
-    g = st.g
+    g, alive = population or trainer.population()
     cam, static = request_to_camera(req, g.xyz.device)
-    return render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
+    return render(g.xyz, g.scaling(), g.quats, g.opacity(alive),
                   g.sh_coeffs(), cam, static,
                   RenderConfig(sh_degree=trainer.active_sh_degree),
                   bg=trainer.bg, align=st.align).render
@@ -287,25 +304,47 @@ def main(argv=None) -> dict:
     cfg = args_to_config(args)
     check_ported(cfg)
 
+    from ..utils.device import resolve_device
+
+    device = resolve_device(args.device)
+    if cfg.mesh == 0:
+        return _train(args, cfg, device, lead=True)
+    import torch.distributed as dist
+
+    from ..dist.trainer import init_distributed
+
+    device, started = init_distributed(device, cfg.mesh)
+    try:
+        return _train(args, cfg, device, lead=dist.get_rank() == 0)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device, lead: bool) -> dict:
+    """The CLI's training on `device`; only the `lead` rank prints and
+    writes files (every rank takes part in the gathers and checkpoints)."""
     from ..eval.metrics import Lpips, psnr
     from ..eval.pose_eval import align_and_pose_error
     from ..model.gaussians import save_ply
     from ..raster.render import RenderConfig, render
     from ..train.losses import ssim
-    from ..utils.device import resolve_device
     from ..utils.logging import MetricsLogger
     from .render import save_png
 
-    device = resolve_device(args.device)
-    os.makedirs(args.model_path, exist_ok=True)
-    with open(os.path.join(args.model_path, "cfg.json"), "w") as f:
-        f.write(cfg.to_json())
+    print = builtins.print if lead else (lambda *a, **k: None)
+    if lead:
+        os.makedirs(args.model_path, exist_ok=True)
+        with open(os.path.join(args.model_path, "cfg.json"), "w") as f:
+            f.write(cfg.to_json())
 
     scene, trainer = build_scene_and_trainer(cfg, device)
+    mesh = f", {cfg.mesh} ranks" if cfg.mesh else ""
     print(f"scene: {scene.n_train} train / {scene.n_test} test cameras, "
           f"extent {scene.cameras_extent:.3f}, capacity "
-          f"{trainer.base.capacity}, alive {int(trainer.base.alive.sum())}, "
-          f"size {scene.static.width}x{scene.static.height}, device {device}")
+          f"{scene.gaussians.xyz.shape[0]}, alive {trainer.n_alive()}, "
+          f"size {scene.static.width}x{scene.static.height}, device "
+          f"{device}{mesh}")
     fisheye_eval = cubemap_eval = None
     if cfg.calib.cubemap:
         from ..train.calibrated import cubemap_eval_view, make_cubemap_eval_fn
@@ -330,13 +369,13 @@ def main(argv=None) -> dict:
     # in-loop LPIPS on the alex backbone, as the reference's
     # (lpipsPyTorch/__init__.py:8); the metrics CLI takes vgg
     lpips_fn = Lpips(net="alex").to(device)
-    logger = MetricsLogger(args.model_path)
+    logger = MetricsLogger(args.model_path) if lead else None
     eval_file = os.path.join(args.model_path, "evaluation_results.txt")
     summary = {"losses": [], "step_s": [], "densify": trainer.densify_log,
                "mcmc": trainer.mcmc_log, "eval": [], "eval_renders": 0, "model_path": args.model_path,
                "lens_prefit_s": getattr(trainer, "prefit_s", None)}
 
-    def eval_view(split, cams, i):
+    def eval_view(split, cams, i, population):
         """(image, gt) of view i of a split, clipped / masked for metrics."""
         if fisheye_eval is not None:
             img, gt, _ = fisheye_eval_view(trainer, fisheye_eval, scene,
@@ -346,25 +385,27 @@ def main(argv=None) -> dict:
             img, gt, _ = cubemap_eval_view(trainer, cubemap_eval, scene,
                                            split, cams, i)
             return img, gt
-        st = trainer.base
-        g = st.g
+        g, alive = population
         # no specular colour here, as in the JAX train CLI (train.py:361-366)
-        out = render(g.xyz, g.scaling(), g.quats, g.opacity(st.alive),
+        out = render(g.xyz, g.scaling(), g.quats, g.opacity(alive),
                      g.sh_coeffs(), cams[i], scene.static,
                      RenderConfig(sh_degree=trainer.active_sh_degree),
-                     bg=trainer.bg, align=st.align)
+                     bg=trainer.bg, align=trainer.base.align)
         gt_fn = scene.test_image if split == "test" else scene.train_image
         return torch.clamp(out.render, 0.0, 1.0), gt_fn(i)
 
     @torch.no_grad()
     def evaluate(it):
         st = trainer.base
+        population = trainer.population()        # a gather under a mesh
+        if not lead:
+            return
         lines, img = [], None
         for split, cams, n in (("test", scene.test_cams, scene.n_test),
                                ("train", st.cams, min(5, scene.n_train))):
             l1s, psnrs, ssims, lpipss = [], [], [], []
             for i in range(n):
-                img, gt_img = eval_view(split, cams, i)
+                img, gt_img = eval_view(split, cams, i, population)
                 summary["eval_renders"] += 1
                 l1s.append(float(torch.mean(torch.abs(img - gt_img))))
                 psnrs.append(float(psnr(img, gt_img)))
@@ -398,7 +439,7 @@ def main(argv=None) -> dict:
         summary["eval"].extend(lines)
 
     gui = vis_client = None
-    if args.gui:
+    if args.gui and lead:
         from ..eval.network_gui import NetworkGUI
         try:
             gui = NetworkGUI(args.ip, args.port)
@@ -406,7 +447,7 @@ def main(argv=None) -> dict:
         except OSError as e:          # the address is taken, as in JAX's CLI
             print(f"network GUI unavailable ({e}); continuing without")
 
-    if args.vis_pose:
+    if args.vis_pose and lead:
         from ..eval.vis import VisdomClient
         vis_client = VisdomClient(args.visdom_server, args.visdom_port)
 
@@ -416,9 +457,12 @@ def main(argv=None) -> dict:
         summary["losses"].append(float(metrics.loss))   # waits for the step
         now = time.perf_counter()
         summary["step_s"].append(now - last[0])
-        if gui is not None:
-            gui.poll(lambda req: viewer_render(trainer, req), args.source_path,
-                     training_done=it >= args.iterations)
+        if args.gui:
+            # under a mesh every rank gathers the population, rank 0 serves
+            population = trainer.population()
+            if gui is not None:
+                gui.poll(lambda req: viewer_render(trainer, req, population),
+                         args.source_path, training_done=it >= args.iterations)
         if vis_client is not None and it % VIS_POSE_EVERY == 0:
             # live pose frusta to the visdom server (train.py:344-346)
             if not vis_client.plot_cameras(it, trainer.base.cams,
@@ -426,7 +470,7 @@ def main(argv=None) -> dict:
                     and it == VIS_POSE_EVERY:
                 print(f"visdom server {vis_client.url} unreachable; live "
                       "pose plots disabled for this run")
-        if it % 10 == 0:
+        if logger is not None and it % 10 == 0:
             logger.log(it, loss=metrics.loss, l1=metrics.l1,
                        n_alive=metrics.n_alive, n_dropped=metrics.n_dropped)
         if not args.quiet and it % 200 == 0:
@@ -435,11 +479,12 @@ def main(argv=None) -> dict:
         if it in cfg.test_iterations:
             evaluate(it)
         if it in cfg.save_iterations:
-            ply_dir = os.path.join(args.model_path, "point_cloud",
-                                   f"iteration_{it}")
-            os.makedirs(ply_dir, exist_ok=True)
-            save_ply(os.path.join(ply_dir, "point_cloud.ply"), trainer.base.g,
-                     trainer.base.alive)
+            g, alive = trainer.population()
+            if lead:
+                ply_dir = os.path.join(args.model_path, "point_cloud",
+                                       f"iteration_{it}")
+                os.makedirs(ply_dir, exist_ok=True)
+                save_ply(os.path.join(ply_dir, "point_cloud.ply"), g, alive)
         if it in cfg.checkpoint_iterations:
             trainer.save_checkpoint(
                 os.path.join(args.model_path, f"chkpnt{it}.npz"))
@@ -449,7 +494,8 @@ def main(argv=None) -> dict:
         trainer.run(iterations=args.iterations, callback=callback)
     finally:
         trainer.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
         if gui is not None:
             gui.close()
     for it, cloned, split, pruned, before, after in trainer.densify_log:

@@ -90,6 +90,39 @@ def gather_rows(table: torch.Tensor, abs_probe: Optional[torch.Tensor],
     return _GatherRowsAbs.apply(table, abs_probe, gauss_id)
 
 
+def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor,
+              max_instances: Optional[int],
+              abs_probe: Optional[torch.Tensor] = None, y0: int = 0,
+              sort_key: Optional[torch.Tensor] = None,
+              tick: Callable[[str], None] = lambda name: None):
+    """Bin, gather and composite projected Gaussians over the tiles of a
+    width x height image whose first pixel row is y0 of the view (a slab
+    of a taller view, `dist/sharded.py`), the background blended.
+
+    proj: its x2d / y2d as the tiles see them (a densify probe added);
+    abs_probe: as in `gather_rows`; sort_key: optional per-Gaussian sort
+    depth (`binning.bin_gaussians`). Returns (image (3, height, width),
+    (t_final, depth) (2, height, width), the binning)."""
+    tiles_x, tiles_y = tiles.tile_grid(width, height)
+    if y0:
+        proj = dataclasses.replace(proj, y2d=proj.y2d - float(y0))
+    bins = binning.bin_gaussians(proj.detach(), tiles_x, tiles_y,
+                                 max_instances, sort_key_depth=sort_key)
+    tick("binning")
+    rows = gather_rows(build_packet_table(proj, proj.x2d, proj.y2d),
+                       abs_probe, bins.gauss_id)
+    tick("gather")
+    color4, t_final = composite_fwd(rows, bins.tile_start, bins.tile_count,
+                                    tiles_x, tiles_y)
+    tick("composite_fwd")
+    out = color4.transpose(1, 2)                                 # (T, NPIX, 4)
+    color = out[..., :3] + t_final[..., None] * bg[None, None, :]
+    img = tiles.tiles_to_image(color, tiles_x, tiles_y, width, height)
+    aux = tiles.tiles_to_image(torch.stack([t_final, out[..., 3]], dim=-1),
+                               tiles_x, tiles_y, width, height)
+    return img, aux, bins
+
+
 def render(
     xyz: torch.Tensor,
     scales: torch.Tensor,
@@ -126,31 +159,13 @@ def render(
         align=align, extra_color=extra_color, shift_factors=shift_factors)
     tick("projection")
 
-    x2d, y2d = proj.x2d, proj.y2d
-    if probe2d is not None:
-        x2d = x2d + probe2d[:, 0]
-        y2d = y2d + probe2d[:, 1]
-
-    tiles_x, tiles_y = tiles.tile_grid(static.width, static.height)
+    seen = proj if probe2d is None else dataclasses.replace(
+        proj, x2d=proj.x2d + probe2d[:, 0], y2d=proj.y2d + probe2d[:, 1])
     sort_key = (distance_to_camera(xyz, cam, align).detach()
                 if cfg.sort_by_distance else None)
-    bins = binning.bin_gaussians(
-        dataclasses.replace(proj, x2d=x2d, y2d=y2d).detach(),
-        tiles_x, tiles_y, cfg.max_instances, sort_key_depth=sort_key)
-    tick("binning")
-
-    rows = gather_rows(build_packet_table(proj, x2d, y2d), abs_probe,
-                       bins.gauss_id)
-    tick("gather")
-    color4, t_final = composite_fwd(rows, bins.tile_start, bins.tile_count,
-                                    tiles_x, tiles_y)
-    tick("composite_fwd")
-    out = color4.transpose(1, 2)                                 # (T, NPIX, 4)
-    color = out[..., :3] + t_final[..., None] * bg[None, None, :]
-    img = tiles.tiles_to_image(color, tiles_x, tiles_y,
-                               static.width, static.height)
-    aux = tiles.tiles_to_image(torch.stack([t_final, out[..., 3]], dim=-1),
-                               tiles_x, tiles_y, static.width, static.height)
+    img, aux, bins = rasterize(seen, static.width, static.height, bg,
+                               cfg.max_instances, abs_probe,
+                               sort_key=sort_key, tick=tick)
     return RenderOutput(
         render=img,
         t_final=aux[0],

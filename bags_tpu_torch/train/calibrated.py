@@ -60,7 +60,8 @@ from ..model.densify import update_stats
 from ..raster.render import RenderConfig, render
 from .checkpoint import PREFIX, copy_leaves, load_checkpoint, save_checkpoint
 from .config import TrainConfig
-from .loop import (StepMetrics, Trainer, TrainState, extra_color,
+from .loop import (StepMetrics, Trainer, TrainState, accumulate_stats,
+                   extra_color, sample_views, split_views, step_optimizers,
                    step_specular, zero_spec_grads)
 from .losses import l1_loss, photometric_loss, ssim
 from .optim import (CAMERA_FIELDS, AdamMoments, adam_moments_init,
@@ -256,7 +257,7 @@ def _grads_or_zeros(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
-                       p_view: torch.Tensor, cam_idx: int, bg: torch.Tensor,
+                       p_view: torch.Tensor, cam_idx, bg: torch.Tensor,
                        setup: FisheyeSetup, rcfg: RenderConfig,
                        cfg: TrainConfig, schedules, opt_lens: bool,
                        use_vignetting: bool,
@@ -272,20 +273,21 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
     vignetting model steps with use_vignetting, the shift with
     `--opt_shift`. A hybrid state's render adds the specular colour and its
     MLP steps (`loop.step_specular`). timer(name), if given, is called
-    after each stage."""
+    after each stage.
+
+    `--batch_cams` K > 1: `cam_idx` is K distinct camera rows and `fish_gt`
+    (K, 3, H, W); the K views (render, lens flow, warp, loss) run one after
+    another and one backward of their mean loss steps every group once
+    (calibrated.py:280-300); the image is then (K, 3, H, W) and n_dropped
+    the sum of the views'."""
     tick = timer or (lambda name: None)
     calib = cfg.calib
     b = state.base
-    g, cams = b.g, b.cams
+    g = b.g
     static = setup.render_static
     apply2gt = calib.apply2gt
-    row = {f: getattr(cams, f)[cam_idx].detach().clone().requires_grad_(True)
-           for f in CAMERA_FIELDS}
-    cam = CameraParams(q_init=cams.q_init[cam_idx],
-                       t_init=cams.t_init[cam_idx], **row)
-    probe = torch.zeros((b.capacity, 2), device=g.xyz.device,
-                        requires_grad=True)
-    absp = torch.zeros_like(probe, requires_grad=True)
+    batch, idxs, gts = split_views(cam_idx, fish_gt)
+    views = sample_views(b, idxs, b.capacity)
     lens_named = state.lens.named_tensors(trained_only=True)
     for p in lens_named.values():
         p.requires_grad_(opt_lens)
@@ -294,56 +296,56 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
         p.grad = None
     zero_spec_grads(b)
 
-    extra = extra_color(b, cam)
-    if extra is not None:
-        tick("specular")
-    out = render(g.xyz, g.scaling(), g.quats, g.opacity(b.alive),
-                 g.sh_coeffs(), cam, static, rcfg, bg=bg, align=b.align,
-                 probe2d=probe, abs_probe=absp, extra_color=extra,
-                 shift_factors=state.shift if calib.opt_shift else None,
-                 timer=tick)
-    flow = dist_lib.compute_flow(state.lens, p_view, setup.grid_hw,
-                                 _proj_scale(cam), setup.flow_hw,
-                                 sensor_to_frustum=apply2gt)
-    tick("lens_flow")
-    if not apply2gt:
-        warped, mask, _ = dist_lib.apply_distortion(
-            state.lens, p_view, setup.grid_hw, out.render, None,
-            setup.flow_hw, final_hw=setup.fish_hw, apply2gt=False, flow=flow)
-        tick("warp_crop")
-        gt_img = fish_gt
-        if use_vignetting:
-            mask = mask * vignetting_mask(state.vig, *setup.fish_hw)[None]
-        if not calib.no_distortion_mask:
-            gt_img = gt_img * mask
-        image = warped
-        loss = photometric_loss(warped, gt_img, cfg.opt.lambda_dssim)
-    else:
-        gt_warped, mask, _ = dist_lib.apply_distortion(
-            state.lens, p_view, setup.grid_hw, fish_gt, None, setup.flow_hw,
-            apply2gt=True, flow=flow)
-        tick("warp_crop")
-        image = out.render
-        if use_vignetting:
-            mask = mask * vignetting_mask(state.vig, static.height,
-                                          static.width)[None]
-        if not calib.no_distortion_mask:
-            image = image * mask
-        loss = photometric_loss(image, gt_warped, cfg.opt.lambda_dssim)
-    tick("loss")
+    outs, images, losses = [], [], []
+    for v, gt_k in zip(views, gts):
+        extra = extra_color(b, v.cam)
+        if extra is not None:
+            tick("specular")
+        out = render(g.xyz, g.scaling(), g.quats, g.opacity(b.alive),
+                     g.sh_coeffs(), v.cam, static, rcfg, bg=bg, align=b.align,
+                     probe2d=v.probe, abs_probe=v.absp, extra_color=extra,
+                     shift_factors=state.shift if calib.opt_shift else None,
+                     timer=tick)
+        flow = dist_lib.compute_flow(state.lens, p_view, setup.grid_hw,
+                                     _proj_scale(v.cam), setup.flow_hw,
+                                     sensor_to_frustum=apply2gt)
+        tick("lens_flow")
+        if not apply2gt:
+            warped, mask, _ = dist_lib.apply_distortion(
+                state.lens, p_view, setup.grid_hw, out.render, None,
+                setup.flow_hw, final_hw=setup.fish_hw, apply2gt=False,
+                flow=flow)
+            tick("warp_crop")
+            gt_img = gt_k
+            if use_vignetting:
+                mask = mask * vignetting_mask(state.vig, *setup.fish_hw)[None]
+            if not calib.no_distortion_mask:
+                gt_img = gt_img * mask
+            image = warped
+            loss = photometric_loss(warped, gt_img, cfg.opt.lambda_dssim)
+        else:
+            gt_warped, mask, _ = dist_lib.apply_distortion(
+                state.lens, p_view, setup.grid_hw, gt_k, None, setup.flow_hw,
+                apply2gt=True, flow=flow)
+            tick("warp_crop")
+            image = out.render
+            if use_vignetting:
+                mask = mask * vignetting_mask(state.vig, static.height,
+                                              static.width)[None]
+            if not calib.no_distortion_mask:
+                image = image * mask
+            loss = photometric_loss(image, gt_warped, cfg.opt.lambda_dssim)
+        tick("loss")
+        outs.append(out)
+        images.append(image)
+        losses.append(loss)
+    loss = losses[0] if batch is None else torch.stack(losses).mean()
 
     b.g_opt.zero_grad()
     loss.backward()
     tick("backward")
 
-    b.g_opt.param_groups[0]["lr"] = b.xyz_sched(b.step)
-    b.g_opt.step()
-    row_grads = {f: row[f].grad for f in CAMERA_FIELDS}
-    row_adam_update(cams, b.cam_opt, row_grads, cam_idx,
-                    camera_lrs(calib, b.step))
-    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
-    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
-    grads.update(step_specular(b))
+    grads = step_optimizers(b, cfg, views, cam_idx, alignment=False)
     if opt_lens:
         lens_grads = _grads_or_zeros(lens_named)
         grads.update({".lens" + k: v for k, v in lens_grads.items()})
@@ -364,14 +366,15 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
         grads[".shift"] = shift_grads[""]
         adam_moments_step({"": state.shift}, shift_grads, state.shift_opt,
                           schedules["shift"](b.step))
-    with torch.no_grad():
-        b.stats = update_stats(b.stats, probe.grad, absp.grad, out.radii,
-                               out.visibility)
+    accumulate_stats(b, [v.probe.grad for v in views],
+                     [v.absp.grad for v in views], [o.radii for o in outs])
     b.step += 1
     tick("optimizers")
+    image = images[0] if batch is None else torch.stack(images)
     return StepMetrics(loss=loss.detach(), l1=loss.detach(),
-                            n_alive=b.alive.sum(), n_dropped=out.n_dropped,
-                            image=image.detach(), grads=grads)
+                       n_alive=b.alive.sum(),
+                       n_dropped=sum(o.n_dropped for o in outs),
+                       image=image.detach(), grads=grads)
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,12 @@ are ignored on load.
 
 A calibrated state (`train/calibrated.py`) writes its base state under
 `.base` (`.base.g.xyz`, ...) and its own leaves beside it.
+
+A state sharded over ranks (`dist/trainer.py`) holds one block of the
+Gaussian slots: its save gathers the row leaves (`is_row_leaf`) to every
+rank and rank 0 writes the same file a single device would, and its load
+reads the file and keeps its block (`rows`), so a checkpoint moves between
+process counts.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import dataclasses
 import glob
 import os
 import re
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -86,12 +92,29 @@ def _optimizer_leaves(state: TrainState) -> dict:
     return out
 
 
+def is_row_leaf(name: str) -> bool:
+    """Whether the leaf `name` (without prefix) has one row per Gaussian
+    slot: the Gaussians, alive, the statistics and the Gaussians' Adam
+    moments."""
+    return name.startswith((".g.", ".alive", ".stats.")) or (
+        name.startswith("g_opt.") and not name.endswith(".step"))
+
+
 def save_checkpoint(path: str, state: TrainState, pre: str = "",
-                    extra: Optional[dict] = None) -> None:
+                    extra: Optional[dict] = None,
+                    gather: Optional[Callable] = None,
+                    write: bool = True) -> None:
     """Write `state`, its JAX-named leaves under `pre` (a calibrated state
-    writes its base under ".base") and the arrays of `extra` beside them."""
-    arrays = {PREFIX + pre + k: _host(v)
-              for k, v in _model_leaves(state).items()}
+    writes its base under ".base") and the arrays of `extra` beside them.
+    gather: applied to every row leaf (a sharded state's all-gather, which
+    every rank calls); write: whether this process writes the file."""
+    model, opt = _model_leaves(state), _optimizer_leaves(state)
+    if gather is not None:
+        model = {k: gather(v) if is_row_leaf(k) else v for k, v in model.items()}
+        opt = {k: gather(v) if is_row_leaf(k) else v for k, v in opt.items()}
+    if not write:
+        return
+    arrays = {PREFIX + pre + k: _host(v) for k, v in model.items()}
     arrays[PREFIX + pre + ".step"] = np.asarray(state.step, np.int32)
     arrays.update({PREFIX + pre + k: _host(v)
                    for k, v in _spec_opt_leaves(state).items()})
@@ -99,15 +122,14 @@ def save_checkpoint(path: str, state: TrainState, pre: str = "",
         for i in (0, 1):
             arrays[f"{PREFIX}{pre}.spec_opt[{i}].count"] = np.asarray(
                 state.spec_opt.count, np.int32)
-    arrays.update({PORT + k: _host(v)
-                   for k, v in _optimizer_leaves(state).items()})
+    arrays.update({PORT + k: _host(v) for k, v in opt.items()})
     arrays.update(extra or {})
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
 
 
 def _restore_adam(prefix: str, opt: torch.optim.Optimizer, names, data,
-                  path: str) -> None:
+                  path: str, rows: Optional[slice] = None) -> None:
     for group, name in zip(opt.param_groups, names):
         for i, p in enumerate(group["params"]):
             keys = {k.rsplit(".", 1)[1]: k for k in data.files
@@ -118,6 +140,8 @@ def _restore_adam(prefix: str, opt: torch.optim.Optimizer, names, data,
             st = {}
             for k, key in keys.items():
                 v = torch.as_tensor(data[key])
+                if rows is not None and is_row_leaf(key[len(PORT):]):
+                    v = v[rows]
                 st[k] = v if k == "step" else v.to(p.device)
                 if k != "step" and st[k].shape != p.shape:
                     raise ValueError(f"{path}: {key} has shape "
@@ -126,14 +150,18 @@ def _restore_adam(prefix: str, opt: torch.optim.Optimizer, names, data,
             opt.state[p] = st
 
 
-def copy_leaves(data, path: str, leaves: dict) -> None:
+def copy_leaves(data, path: str, leaves: dict,
+                rows: Optional[slice] = None) -> None:
     """Copy the arrays `"v2|" + name` of `data` into the tensors of
-    `leaves` ({name: tensor}); every one must be there, in its shape."""
+    `leaves` ({name: tensor}); every one must be there, in its shape. With
+    `rows`, a row leaf's block `rows` is copied."""
     missing = [n for n in leaves if PREFIX + n not in data.files]
     if missing:
         raise ValueError(f"checkpoint {path} is missing leaves {missing[:8]}")
     for name, t in leaves.items():
         arr = data[PREFIX + name]
+        if rows is not None and is_row_leaf(name):
+            arr = arr[rows]
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{path}: {name} has shape {arr.shape}, the "
                              f"state {tuple(t.shape)}")
@@ -142,17 +170,19 @@ def copy_leaves(data, path: str, leaves: dict) -> None:
 
 @torch.no_grad()
 def load_checkpoint(path: str, state: TrainState,
-                    with_optimizer: bool = True, pre: str = "") -> TrainState:
+                    with_optimizer: bool = True, pre: str = "",
+                    rows: Optional[slice] = None) -> TrainState:
     """Restore `state` in place from `path` and return it. The model,
     camera, alignment and statistics leaves, and a hybrid state's specular
     MLP and its Adam state, must all be present under their JAX names
     (under `pre`), with the template's shapes: a hybrid checkpoint loads
     into a hybrid template. `with_optimizer=False` (for rendering)
-    restores only those, so a checkpoint the JAX package wrote loads too."""
+    restores only those, so a checkpoint the JAX package wrote loads too.
+    rows: a sharded state's block of the Gaussian slots."""
     data = np.load(path)
     copy_leaves(data, path, {pre + k: v for k, v in
                              {**_model_leaves(state),
-                              **_spec_opt_leaves(state)}.items()})
+                              **_spec_opt_leaves(state)}.items()}, rows)
     state.step = int(data[PREFIX + pre + ".step"])
     if state.spec_opt is not None:
         state.spec_opt.count = int(data[f"{PREFIX}{pre}.spec_opt[0].count"])
@@ -162,7 +192,7 @@ def load_checkpoint(path: str, state: TrainState,
         raise ValueError(f"checkpoint {path} holds no optimizer state of "
                          "this package (written by the JAX package?)")
     _restore_adam("g_opt", state.g_opt,
-                  [n for n, _ in gaussian_groups(state.g)], data, path)
+                  [n for n, _ in gaussian_groups(state.g)], data, path, rows)
     _restore_adam("align_opt", state.align_opt, ["align"], data, path)
     for f in CAMERA_FIELDS:
         state.cam_opt.mu[f].copy_(torch.as_tensor(data[f"{PORT}cam_opt.mu.{f}"]))

@@ -16,7 +16,10 @@ opacity reset, or with `--mcmc` the relocation step (`mcmc_step`) at the
 densification interval and position noise (`mcmc_noise_step`) every step,
 a camera stack drawn from `np.random.default_rng(seed).permutation` (so
 both packages visit cameras in the same order) and a 1-deep GT prefetch
-thread.
+thread. With `--batch_cams K` a step takes K distinct cameras of that
+stack: the K views render one after another, one backward of the mean
+loss steps the Gaussians once and each camera row once, and the
+statistics are scaled back to a single view's.
 
 The population keeps the JAX package's fixed capacity and `alive` mask; the
 instance count of each view is dynamic, so there is no instance budget and
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -147,95 +150,201 @@ def step_specular(state: TrainState) -> dict:
     return {".spec" + k: v for k, v in grads.items()}
 
 
-def mcmc_regularisers(g: Gaussians, alive: torch.Tensor,
-                      cfg: TrainConfig) -> torch.Tensor:
+def mcmc_regularisers(g: Gaussians, alive: torch.Tensor, cfg: TrainConfig,
+                      n_alive: Optional[torch.Tensor] = None) -> torch.Tensor:
     """opacity_reg mean|o| + scale_reg mean|s| over the live Gaussians (the
-    reference's means over its actual Gaussians, not the capacity)."""
-    n_alive = torch.clamp(alive.sum(), min=1).to(g.opacity_raw.dtype)
+    reference's means over its actual Gaussians, not the capacity). Under a
+    mesh `g` and `alive` are this rank's block and `n_alive` the live count
+    of the whole population, so the ranks' terms add up to the whole."""
+    if n_alive is None:
+        n_alive = alive.sum()
+    n_alive = torch.clamp(n_alive, min=1).to(g.opacity_raw.dtype)
     reg = cfg.opt.opacity_reg * torch.sum(torch.abs(g.opacity(alive))) / n_alive
     return reg + cfg.opt.scale_reg * torch.sum(torch.abs(
         g.scaling() * alive[:, None])) / (3.0 * n_alive)
 
 
-def train_step(state: TrainState, gt: torch.Tensor, cam_idx: int,
+def camera_batch(cam_idx) -> Optional[List[int]]:
+    """The K cameras of a `--batch_cams` step as a list, or None for a
+    single camera index (an int)."""
+    if isinstance(cam_idx, (int, np.integer)):
+        return None
+    return [int(i) for i in cam_idx]
+
+
+def split_views(cam_idx, gt):
+    """(`camera_batch(cam_idx)`, the step's camera rows, their GTs): one
+    camera and its (3, H, W) GT, or K cameras and the (K, 3, H, W) GT."""
+    batch = camera_batch(cam_idx)
+    if batch is None:
+        return None, [cam_idx], [gt]
+    return batch, batch, list(gt)
+
+
+@dataclasses.dataclass
+class View:
+    """One sampled camera of a step: its learnable row (leaf tensors that
+    take the gradients), the camera built on them, and its densification
+    probes (zeros whose gradients are the statistics)."""
+
+    row: Dict[str, torch.Tensor]
+    cam: CameraParams
+    probe: torch.Tensor
+    absp: torch.Tensor
+
+
+def sample_views(state: TrainState, idxs: List[int], n_probe: int) -> List[View]:
+    """A View of each camera row in `idxs`, with (n_probe, 2) probes."""
+    cams, views = state.cams, []
+    for i in idxs:
+        row = {f: getattr(cams, f)[i].detach().clone().requires_grad_(True)
+               for f in CAMERA_FIELDS}
+        probe = torch.zeros((n_probe, 2), device=state.g.xyz.device,
+                            requires_grad=True)
+        views.append(View(row=row, cam=CameraParams(
+            q_init=cams.q_init[i], t_init=cams.t_init[i], **row), probe=probe,
+            absp=torch.zeros_like(probe, requires_grad=True)))
+    return views
+
+
+def zero_step_grads(state: TrainState) -> None:
+    """Clear the gradients of every tensor the step optimises."""
+    state.g_opt.zero_grad()
+    state.align_opt.zero_grad()
+    zero_spec_grads(state)
+
+
+def step_optimizers(state: TrainState, cfg: TrainConfig, views: List[View],
+                    cam_idx, alignment: bool = True) -> Dict[str, torch.Tensor]:
+    """After the backward: the Gaussians' Adam, the specular MLP, the
+    sampled camera rows' row Adam (one row, or the K rows of a batch, their
+    gradients stacked) and, with `alignment` and `--opt_global_alignment`,
+    the global alignment (the JAX fisheye step never steps it). Returns
+    every gradient by the JAX package's names."""
+    g = state.g
+    # the xyz lr follows the global step, as optax's schedule follows its
+    # update count
+    state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
+    state.g_opt.step()
+    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
+    grads.update(step_specular(state))
+    if camera_batch(cam_idx) is None:
+        row_grads = {f: views[0].row[f].grad for f in CAMERA_FIELDS}
+    else:
+        row_grads = {f: torch.stack([v.row[f].grad for v in views])
+                     for f in CAMERA_FIELDS}
+    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
+    row_adam_update(state.cams, state.cam_opt, row_grads, cam_idx,
+                    camera_lrs(cfg.calib, state.step))
+    # global alignment: opt-in (the reference never steps it)
+    if alignment and cfg.calib.opt_global_alignment:
+        state.align_opt.step()
+    return grads
+
+
+@torch.no_grad()
+def accumulate_stats(state: TrainState, probe_grads, abs_grads, radii) -> None:
+    """Add each view's statistics. With K > 1 views the mean over views
+    scales every probe gradient by 1 / K, and the densify thresholds are a
+    single view's magnitudes, so they are scaled back by K (loop.py:247-256)."""
+    k = len(radii)
+    for pg, ag, r in zip(probe_grads, abs_grads, radii):
+        if k > 1:
+            pg, ag = pg * k, ag * k
+        state.stats = update_stats(state.stats, pg, ag, r, r > 0)
+
+
+def train_step(state: TrainState, gt: torch.Tensor, cam_idx,
                bg: torch.Tensor, static: CameraStatic, rcfg: RenderConfig,
                cfg: TrainConfig) -> StepMetrics:
     """One training step on camera `cam_idx` against `gt` (3, H, W); updates
     `state` in place (`make_train_step`, loop.py:148-270). Returns the
     metrics with every gradient the step took (`grads`, by the JAX
-    package's names)."""
-    g, cams = state.g, state.cams
-    row = {f: getattr(cams, f)[cam_idx].detach().clone().requires_grad_(True)
-           for f in CAMERA_FIELDS}
-    cam = CameraParams(q_init=cams.q_init[cam_idx],
-                       t_init=cams.t_init[cam_idx], **row)
-    probe = torch.zeros((state.capacity, 2), device=g.xyz.device,
-                        requires_grad=True)
-    absp = torch.zeros_like(probe, requires_grad=True)
-    out = render(g.xyz, g.scaling(), g.quats, g.opacity(state.alive),
-                 g.sh_coeffs(), cam, static, rcfg, bg=bg, align=state.align,
-                 probe2d=probe, abs_probe=absp,
-                 extra_color=extra_color(state, cam))
-    loss = photometric_loss(out.render, gt, cfg.opt.lambda_dssim)
+    package's names).
+
+    `--batch_cams` K > 1: `cam_idx` is K distinct camera rows and `gt`
+    (K, 3, H, W). The K views render one after another, each with its own
+    probes; one backward of mean(losses) (+ the MCMC regularisers) steps
+    the Gaussians once and each camera row once. The metrics' image is
+    then (K, 3, H, W), the camera gradients (K, ...), and n_dropped the
+    largest of the views'."""
+    batch, idxs, gts = split_views(cam_idx, gt)
+    g = state.g
+    views = sample_views(state, idxs, state.capacity)
+    outs, losses = [], []
+    for v, gt_k in zip(views, gts):
+        out = render(g.xyz, g.scaling(), g.quats, g.opacity(state.alive),
+                     g.sh_coeffs(), v.cam, static, rcfg, bg=bg,
+                     align=state.align, probe2d=v.probe, abs_probe=v.absp,
+                     extra_color=extra_color(state, v.cam))
+        losses.append(photometric_loss(out.render, gt_k, cfg.opt.lambda_dssim))
+        outs.append(out)
+    loss = losses[0] if batch is None else torch.stack(losses).mean()
     if cfg.mcmc:
         loss = loss + mcmc_regularisers(g, state.alive, cfg)
-    state.g_opt.zero_grad()
-    state.align_opt.zero_grad()
-    zero_spec_grads(state)
+    zero_step_grads(state)
     loss.backward()
 
-    # Gaussians: the xyz lr follows the global step, as optax's schedule
-    # follows its update count.
-    state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
-    state.g_opt.step()
-    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
-    grads.update(step_specular(state))
-    # camera: only the sampled row moves
-    row_grads = {f: row[f].grad for f in row}
-    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
-    row_adam_update(cams, state.cam_opt, row_grads, cam_idx,
-                    camera_lrs(cfg.calib, state.step))
-    # global alignment: opt-in (the reference never steps it)
-    if cfg.calib.opt_global_alignment:
-        state.align_opt.step()
-
+    grads = step_optimizers(state, cfg, views, cam_idx)
+    accumulate_stats(state, [v.probe.grad for v in views],
+                     [v.absp.grad for v in views], [o.radii for o in outs])
     with torch.no_grad():
-        state.stats = update_stats(state.stats, probe.grad, absp.grad,
-                                   out.radii, out.visibility)
-        l1 = torch.mean(torch.abs(out.render - gt))
+        if batch is None:
+            image = outs[0].render.detach()
+        else:
+            image, gt = torch.stack([o.render for o in outs]), torch.stack(gts)
+        l1 = torch.mean(torch.abs(image - gt))
     state.step += 1
     return StepMetrics(loss=loss.detach(), l1=l1, n_alive=state.alive.sum(),
-                       n_dropped=out.n_dropped, image=out.render.detach(),
+                       n_dropped=max(o.n_dropped for o in outs), image=image,
                        grads=grads)
+
+
+def densify_population(g: Gaussians, alive: torch.Tensor, stats: DensifyStats,
+                       gen: torch.Generator, cfg: TrainConfig,
+                       scene_extent: float, max_screen_size: float
+                       ) -> DensifyResult:
+    """Densify + prune `g` in place with the configuration's thresholds."""
+    thr = (cfg.opt.abs_densify_grad_threshold if cfg.abs_grad
+           else cfg.opt.densify_grad_threshold)
+    return densify_and_prune(
+        g, alive, stats, gen, grad_threshold=thr,
+        min_opacity=cfg.opacity_threshold, scene_extent=scene_extent,
+        max_screen_size=max_screen_size, percent_dense=cfg.opt.percent_dense,
+        use_abs_grad=cfg.abs_grad)
 
 
 def densify_step(state: TrainState, cfg: TrainConfig, scene_extent: float,
                  max_screen_size: float) -> DensifyResult:
     """Densify + prune, zero the touched Adam rows, reset the statistics."""
-    thr = (cfg.opt.abs_densify_grad_threshold if cfg.abs_grad
-           else cfg.opt.densify_grad_threshold)
-    res = densify_and_prune(
-        state.g, state.alive, state.stats, state.gen, grad_threshold=thr,
-        min_opacity=cfg.opacity_threshold, scene_extent=scene_extent,
-        max_screen_size=max_screen_size, percent_dense=cfg.opt.percent_dense,
-        use_abs_grad=cfg.abs_grad)
+    res = densify_population(state.g, state.alive, state.stats, state.gen,
+                             cfg, scene_extent, max_screen_size)
     zero_moments_at(state.g_opt, res.reset_mask)
     state.alive = res.alive
     state.stats = DensifyStats.zeros(state.capacity, state.alive.device)
     return res
 
 
-def mcmc_step(state: TrainState, cfg: TrainConfig):
-    """Relocate the dead Gaussians, grow toward cap_max (`--cap_max`, else
-    the capacity), then zero the Adam moments at both reset masks
-    (`make_mcmc_step`, loop.py:273-290). Returns (n_relocated, n_added)."""
+def relocate_population(g: Gaussians, alive: torch.Tensor,
+                        gen: torch.Generator, cfg: TrainConfig):
+    """Relocate the dead Gaussians of `g` in place, then grow toward
+    cap_max (`--cap_max`, else the capacity). Returns (alive, the reset
+    mask, n_relocated, n_added)."""
     cap = cfg.model.cap_max if cfg.model.cap_max > 0 else None
-    r1 = mcmc.relocate_dead(state.g, state.alive, state.gen,
-                            min_opacity=cfg.opacity_threshold)
-    r2 = mcmc.add_new_gaussians(state.g, r1.alive, state.gen, cap_max=cap)
-    zero_moments_at(state.g_opt, r1.reset_mask | r2.reset_mask)
-    state.alive = r2.alive
-    return r1.n_relocated, r2.n_relocated
+    r1 = mcmc.relocate_dead(g, alive, gen, min_opacity=cfg.opacity_threshold)
+    r2 = mcmc.add_new_gaussians(g, r1.alive, gen, cap_max=cap)
+    return r2.alive, r1.reset_mask | r2.reset_mask, r1.n_relocated, r2.n_relocated
+
+
+def mcmc_step(state: TrainState, cfg: TrainConfig):
+    """Relocate the dead Gaussians, grow toward cap_max, then zero the Adam
+    moments at both reset masks (`make_mcmc_step`, loop.py:273-290).
+    Returns (n_relocated, n_added)."""
+    alive, reset, n_rel, n_add = relocate_population(state.g, state.alive,
+                                                     state.gen, cfg)
+    zero_moments_at(state.g_opt, reset)
+    state.alive = alive
+    return n_rel, n_add
 
 
 @torch.no_grad()
@@ -311,43 +420,96 @@ class Trainer:
         from .checkpoint import load_checkpoint
         load_checkpoint(path, self.state, with_optimizer)
 
-    def _refill_camera_stack(self) -> None:
-        if not self._camera_stack:
-            n = int(self.base.cams.fovx.shape[0])
-            self._camera_stack = list(self._rng.permutation(n))
+    def _draw(self, k: int, pop: bool) -> List[int]:
+        """The next k distinct cameras of the reshuffled stack
+        (train.py:206-208; `_next_cameras`, loop.py:498-508, a camera drawn
+        twice within the k being dropped), taken off the stack with `pop`,
+        else only looked at. A permutation the draw runs into goes below
+        the rest of the stack, which is where refilling the emptied stack
+        would put it: looking ahead does not change the order."""
+        n = int(self.base.cams.fovx.shape[0])
+        if k > n:
+            raise ValueError(f"batch_cams={k} exceeds the {n} training cameras")
+        stack, out, j = self._camera_stack, [], 0
+        while len(out) < k:
+            if j == len(stack):
+                stack[:0] = [int(i) for i in self._rng.permutation(n)]
+            i = stack[-1 - j]
+            j += 1
+            if i not in out:
+                out.append(i)
+        if pop:
+            del stack[len(stack) - j:]
+        return out
 
     def _next_camera(self) -> int:
         """Random camera from a reshuffled stack (train.py:206-208)."""
-        self._refill_camera_stack()
-        return int(self._camera_stack.pop())
+        return self._draw(1, pop=True)[0]
 
-    def _peek_camera(self) -> int:
-        """The camera the next iteration will draw (for the prefetch)."""
-        self._refill_camera_stack()
-        return int(self._camera_stack[-1])
+    def _next_cameras(self, k: int) -> List[int]:
+        """k distinct cameras (`--batch_cams`) from the same reshuffled
+        stack: the row Adam steps each row once."""
+        return self._draw(k, pop=True)
 
-    def _fetch_gt(self, idx: int) -> torch.Tensor:
-        """GT of camera idx; while this step runs, one IO thread loads the
-        next step's image."""
+    def _step_cameras(self, pop: bool):
+        """The camera of the next step, or the list of its k cameras with
+        `--batch_cams k`; taken with `pop`, else only looked at."""
+        k = self.cfg.opt.batch_cams
+        idx = self._draw(k, pop)
+        return idx if k > 1 else idx[0]
+
+    def _load_gt(self, idx) -> torch.Tensor:
+        """GT of camera idx ((3, H, W)), or of a list of cameras stacked
+        ((K, 3, H, W))."""
+        load = (self.gt_images if callable(self.gt_images)
+                else self.gt_images.__getitem__)
+        if isinstance(idx, list):
+            return torch.stack([load(i) for i in idx])
+        return load(idx)
+
+    def _fetch_gt(self, idx) -> torch.Tensor:
+        """`_load_gt(idx)`; while this step runs, one IO thread loads the
+        next step's GT."""
         if not callable(self.gt_images):
-            return self.gt_images[idx]
+            return self._load_gt(idx)
         pre = self._prefetched
         gt = (pre[1].result() if pre is not None and pre[0] == idx
-              else self.gt_images(idx))
+              else self._load_gt(idx))
         if self._io is None:
             self._io = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="bags-gt-io")
-        nidx = self._peek_camera()
-        self._prefetched = (nidx, self._io.submit(self.gt_images, nidx))
+        nidx = self._step_cameras(pop=False)
+        self._prefetched = (nidx, self._io.submit(self._load_gt, nidx))
         return gt
 
-    def step(self, idx: int, gt: torch.Tensor, it: Optional[int] = None
+    def step(self, idx, gt: torch.Tensor, it: Optional[int] = None
              ) -> StepMetrics:
-        """One step on camera idx; `it`, the iteration of `run`, matters
-        only to a calibrated trainer's lens window."""
+        """One step on camera idx (K distinct cameras and their stacked GT
+        with `--batch_cams`); `it`, the iteration of `run`, matters only
+        to a calibrated trainer's lens window."""
         rcfg = dataclasses.replace(self.rcfg, sh_degree=self.active_sh_degree)
         return train_step(self.state, gt, idx, self.bg, self.static, rcfg,
                           self.cfg)
+
+    # The population transforms of `run`'s cadences. A sharded trainer
+    # (`dist/trainer.py`) runs them on the whole population.
+
+    def n_alive(self) -> int:
+        return int(self.base.alive.sum())
+
+    def densify(self, max_screen: float) -> DensifyResult:
+        return densify_step(self.base, self.cfg, self.scene_extent, max_screen)
+
+    def relocate(self):
+        return mcmc_step(self.base, self.cfg)
+
+    def add_noise(self) -> None:
+        mcmc_noise_step(self.base, self.cfg)
+
+    def population(self):
+        """(Gaussians, alive) of the whole population, for evaluation and
+        saving: the state's own here."""
+        return self.base.g, self.base.alive
 
     def run(self, iterations: Optional[int] = None, log_every: int = 0,
             callback=None):
@@ -360,7 +522,7 @@ class Trainer:
             # SH degree ramp every 1000 iterations (train.py:202)
             if it % 1000 == 0 and self.active_sh_degree < self.max_sh_degree:
                 self.active_sh_degree += 1
-            idx = self._next_camera()
+            idx = self._step_cameras(pop=True)
             metrics = self.step(idx, self._fetch_gt(idx), it)
 
             if self.cfg.mcmc:
@@ -369,22 +531,21 @@ class Trainer:
                 # densify, no opacity reset
                 if opt.densify_from_iter < it < opt.densify_until_iter and \
                         it % opt.densification_interval == 0:
-                    before = int(self.base.alive.sum())
-                    n_rel, n_add = mcmc_step(self.base, self.cfg)
+                    before = self.n_alive()
+                    n_rel, n_add = self.relocate()
                     self.mcmc_log.append((it, n_rel, n_add, before,
-                                          int(self.base.alive.sum())))
-                mcmc_noise_step(self.base, self.cfg)
+                                          self.n_alive()))
+                self.add_noise()
             elif it < opt.densify_until_iter:
                 # densification cadence (train.py:374-389)
                 if it > opt.densify_from_iter and \
                         it % opt.densification_interval == 0:
                     max_screen = 20.0 if it > opt.opacity_reset_interval else 0.0
-                    before = int(self.base.alive.sum())
-                    res = densify_step(self.base, self.cfg,
-                                       self.scene_extent, max_screen)
+                    before = self.n_alive()
+                    res = self.densify(max_screen)
                     self.densify_log.append(
                         (it, res.n_cloned, res.n_split, res.n_pruned, before,
-                         int(self.base.alive.sum())))
+                         self.n_alive()))
                 if it % opt.opacity_reset_interval == 0 or (
                         self.cfg.model.white_background
                         and it == opt.densify_from_iter):

@@ -41,10 +41,9 @@ def _blur(img: torch.Tensor, window_size: int) -> torch.Tensor:
     return x[0]
 
 
-def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-         size_average: bool = True) -> torch.Tensor:
-    """Windowed SSIM of (C, H, W) images: the mean of the SSIM map, or the
-    per-channel means when not `size_average`."""
+def ssim_map(img1: torch.Tensor, img2: torch.Tensor,
+             window_size: int = 11) -> torch.Tensor:
+    """The windowed SSIM map (C, H, W) of (C, H, W) images."""
     c = img1.shape[0]
     b = _blur(torch.cat([img1, img2, img1 * img1, img2 * img2, img1 * img2]),
               window_size)
@@ -54,9 +53,16 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     sigma2_sq = b[3 * c:4 * c] - mu2_sq
     sigma12 = b[4 * c:5 * c] - mu1_mu2
     c1, c2 = 0.01 ** 2, 0.03 ** 2
-    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / \
+    return ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / \
         ((mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
-    return ssim_map.mean() if size_average else ssim_map.mean(dim=(-2, -1))
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
+         size_average: bool = True) -> torch.Tensor:
+    """Windowed SSIM of (C, H, W) images: the mean of the SSIM map, or the
+    per-channel means when not `size_average`."""
+    smap = ssim_map(img1, img2, window_size)
+    return smap.mean() if size_average else smap.mean(dim=(-2, -1))
 
 
 def photometric_loss(pred: torch.Tensor, gt: torch.Tensor,

@@ -157,10 +157,22 @@ def camera_lrs(calib: CalibConfig, global_step: int) -> Dict[str, float]:
 
 @torch.no_grad()
 def row_adam_update(cams: CameraParams, st: RowAdamState,
-                    row_grads: Dict[str, torch.Tensor], idx: int,
+                    row_grads: Dict[str, torch.Tensor], idx,
                     lrs: Dict[str, float]) -> None:
     """One Adam step of camera row `idx` in place; every other row, its
-    moments and its step count stay as they are."""
+    moments and its step count stay as they are. With a sequence of K
+    distinct rows (`--batch_cams`), `row_grads` holds (K, ...) gradients
+    and each row takes its own step with its own count's bias correction
+    (`row_adam_update`, loop.py:84-112); the learning rates are the global
+    step's for all of them."""
+    if not isinstance(idx, int):
+        rows = [int(i) for i in idx]
+        if len(set(rows)) != len(rows):
+            raise ValueError(f"camera rows {rows} are not distinct")
+        for k, i in enumerate(rows):
+            row_adam_update(cams, st, {f: g[k] for f, g in row_grads.items()},
+                            i, lrs)
+        return
     b1, b2 = BETAS
     t = int(st.count[idx]) + 1
     bc1 = 1.0 - b1 ** t

@@ -181,10 +181,25 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      and `--large`) and `cli.bench_calib` (both modes): one JSON line
      each, one forward and one backward launch a step, pixels/s beside
      the card's name and power limit; then every step's seconds;
- 16. prints the kernels line (JSON: the forward, the backward, the
+ 16. slice 6's first part, on step 7's trained state in memory (1M live
+     Gaussians in 4,194,304 slots, 1600x1080): (a) the `--batch_cams 2`
+     pose step against the two single-view steps from copies of the same
+     state (the loss within 1e-5 relative of their mean, every Gaussian
+     and camera gradient within atol 1e-5, rtol 1e-3 of the mean of
+     theirs), then 6 K = 2 steps, 2 forward and 2 backward launches each,
+     their ms beside 6 single-view steps' and the peak memory; (b) `--mesh
+     1` over NCCL: `ShardedTrainer` in a world of one against the plain
+     `Trainer` for 6 timed and 2 profiled steps from the same state and
+     seed (losses within 5e-4, the largest xyz difference, both step times
+     and device times, one launch of each kernel a sharded step), then
+     `python -m bags_tpu_torch.tools.mesh1_parity` in-process at its toy
+     size; (c)
+     `BAGS_TPU_BENCH_BATCH=2` through `cli.bench --large` (its pixels/s
+     line, 2 forward and 2 backward launches a step);
+ 17. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
      every variant's under "variants"; the forward's and the backward's
-     launches by path, fisheye, cubemap, recovery and slice 5's paths
+     launches by path, fisheye, cubemap, recovery, slice 5 and slice 6 paths
      included, and their numbers on the extended-FoV render and the
      cubemap faces) and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
@@ -2421,6 +2436,227 @@ def bench_path(smi):
         launches[name] = (fwd, bwd)
     return lines, launches
 
+def state_copy(state, cfg, scene):
+    """A fresh TrainState on a copy of `state`'s population, cameras and
+    alignment (zero Adam moments and statistics), for step 16."""
+    import torch
+    from bags_tpu_torch.model.gaussians import Gaussians
+    from bags_tpu_torch.train.loop import init_train_state
+
+    g = Gaussians(**{k: v.detach().clone() for k, v in state.g.fields().items()})
+    st = init_train_state(g, state.alive.clone(), state.cams, cfg,
+                          scene.cameras_extent, cfg.seed)
+    with torch.no_grad():
+        st.align.quaternion.copy_(state.align.quaternion)
+        st.align.log_scale.copy_(state.align.log_scale)
+    return st
+
+
+def trainer_copy(cls, state, cfg, scene, mesh=0, batch_cams=1):
+    """A `cls` trainer (`Trainer` or `ShardedTrainer`) on a copy of
+    `state`'s population and cameras, with `cfg`'s options, seed and the
+    scene's GT loader, `--mesh mesh`, `--batch_cams batch_cams` and densify
+    off, for step 16."""
+    from bags_tpu_torch.model.gaussians import Gaussians
+    from bags_tpu_torch.train.config import TrainConfig
+
+    c = TrainConfig.from_json(cfg.to_json())
+    c.mesh, c.opt.batch_cams, c.opt.densify_from_iter = mesh, batch_cams, 10 ** 9
+    g = Gaussians(**{k: v.detach().clone() for k, v in state.g.fields().items()})
+    return cls(g, state.alive.clone(), state.cams, scene.static, c,
+               scene.cameras_extent, scene.train_image, seed=c.seed)
+
+
+def timed_run(trainer, steps):
+    """`trainer.run` of `steps` iterations, each logged (its loss read,
+    as the train CLI does) and synchronised: (the losses, the host seconds
+    of each step)."""
+    import torch
+
+    marks = [time.perf_counter()]
+
+    def tick(it, st, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    hist = trainer.run(iterations=steps, log_every=1, callback=tick)
+    return [h[1] for h in hist], [b - a for a, b in zip(marks, marks[1:])]
+
+
+def batch_cams_path(state, cfg, scene, device, smi):
+    """Step 16a: the K = 2 pose step (`--batch_cams 2`) at full width on the
+    trained state of step 7. From copies of the same state: the step on
+    train views 0 and 1 against the two single-view steps, the loss within
+    1e-5 relative of their mean and every Gaussian and camera gradient
+    within atol 1e-5, rtol 1e-3 of the mean of theirs; then the main path,
+    `Trainer.run` with `--batch_cams 2` for 6 iterations (cameras from the
+    reshuffled stack, the GTs prefetched from the dataset's filled cache),
+    counted: 2 forward and 2 backward launches a step; its step ms (median
+    of the last 5) beside 6 iterations of `Trainer.run` at K = 1 on another
+    copy, and the peak memory. Returns (forward, backward) launches."""
+    import math
+    import statistics
+
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.raster.render import RenderConfig
+    from bags_tpu_torch.train.loop import Trainer, train_step
+
+    rcfg, bg = RenderConfig(sh_degree=0), torch.zeros(3, device=device)
+    views = [0, 1]
+    gts = [scene.train_image(i) for i in views]
+    single = []
+    for i, gt in zip(views, gts):
+        st = state_copy(state, cfg, scene)
+        m = train_step(st, gt, i, bg, scene.static, rcfg, cfg)
+        single.append((float(m.loss), {k: v.detach().clone() for k, v in m.grads.items()}))
+        del st, m
+    st = state_copy(state, cfg, scene)
+    m = train_step(st, torch.stack(gts), views, bg, scene.static, rcfg, cfg)
+    mean = (single[0][0] + single[1][0]) / 2
+    check(abs(float(m.loss) - mean) <= 1e-5 * abs(mean),
+          f"K = 2 loss {float(m.loss)} against the single views' mean {mean}")
+    worst, err = {}, 0.0
+    for name, grad in m.grads.items():
+        a, b = single[0][1][name], single[1][1][name]
+        want = torch.stack([a, b]) / 2 if name.startswith(".cam.") else (a + b) / 2
+        diff = (grad.detach() - want).abs()
+        worst[name] = float((diff - 1e-3 * want.abs()).max())
+        err = max(err, float(diff.max()))
+    print(f"16a K = 2 against the mean of the single views: loss "
+          f"{float(m.loss):.7f} vs {mean:.7f}, gradient excess over atol "
+          f"{json.dumps(worst)}, max abs diff {err:.3g}")
+    check(all(w <= 1e-5 for w in worst.values()), f"K = 2 gradients: {worst}")
+    del m, single, st
+
+    # both runs on the host's GT cache: a first load decodes a PNG in the
+    # prefetch thread, and that slows the step it overlaps
+    t0 = time.perf_counter()
+    for i in range(scene.n_train):
+        scene.train_image(i)
+    print(f"16a GT cache filled ({scene.n_train} views) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    steps = 6
+    one = trainer_copy(Trainer, state, cfg, scene)
+    _, t1 = timed_run(one, steps)
+    one.close()
+    del one
+    two = trainer_copy(Trainer, state, cfg, scene, batch_cams=2)
+    torch.cuda.reset_peak_memory_stats()
+    composite.fwd_launches = composite.bwd_launches = 0
+    losses, t2 = timed_run(two, steps)
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    two.close()
+    del two
+    k2_ms, one_ms = 1e3 * statistics.median(t2[1:]), 1e3 * statistics.median(t1[1:])
+    print(f"16a Trainer.run K = 2 step {k2_ms:.2f} ms (steps "
+          f"{' '.join(f'{1e3 * x:.2f}' for x in t2)}), K = 1 {one_ms:.2f} ms "
+          f"(steps {' '.join(f'{1e3 * x:.2f}' for x in t1)}), peak memory "
+          f"{peak:.2f} GiB, forward launches {fwd}, backward launches {bwd} ({smi})")
+    check(all(math.isfinite(x) for x in losses), f"K = 2 losses {losses}")
+    check(fwd == bwd == 2 * steps, f"K = 2: {fwd} forward and {bwd} "
+                                   f"backward launches for {steps} steps")
+    return fwd, bwd
+
+
+def mesh1_path(state, cfg, scene, device, smi):
+    """Step 16b: `--mesh 1` over NCCL at full width. `ShardedTrainer` in a
+    world of one (`init_distributed`) and the plain `Trainer`, each from a
+    copy of step 7's state with the same seed, 6 steps each (densify off):
+    the losses within 5e-4 of each other (the JAX mesh-1 tool's
+    tolerance), the largest xyz difference, each trainer's step ms (median
+    of the last 5) and device ms a step (a profiler window over 2 more
+    steps), and the sharded trainer's launches (one forward and one
+    backward a step, 8 steps, counted over its runs alone). Then the port's
+    `tools/mesh1_parity.py` at its toy size (4 steps each). Returns
+    ({path: (forward, backward)}, the numbers)."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from bags_tpu_torch.dist.trainer import ShardedTrainer, init_distributed
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import mesh1_parity
+    from bags_tpu_torch.train.loop import Trainer
+
+    steps = 6
+
+    def run(trainer):
+        """The losses, the median step ms after the first, the steps' s and
+        the device ms a step of 2 more steps under the profiler."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        losses, times = timed_run(trainer, steps)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.run(iterations=2)
+            torch.cuda.synchronize()
+        trainer.close()
+        # the kernels' and copies' time, as the profiler's table totals it
+        # (device events that are not user annotations)
+        device_ms = sum(e.self_device_time_total for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not getattr(e, "is_user_annotation", False)) / 2e3
+        return losses, 1e3 * statistics.median(times[1:]), times, device_ms
+
+    t0 = time.perf_counter()
+    _, started = init_distributed(device, 1)
+    print(f"16b world of one ({dist.get_backend()}) started in "
+          f"{time.perf_counter() - t0:.2f} s")
+    try:
+        plain = trainer_copy(Trainer, state, cfg, scene)
+        plain_losses, plain_ms, plain_t, plain_dev = run(plain)
+        mesh = trainer_copy(ShardedTrainer, state, cfg, scene, mesh=1)
+        composite.fwd_launches = composite.bwd_launches = 0
+        mesh_losses, mesh_ms, mesh_t, mesh_dev = run(mesh)
+        fwd, bwd = composite.fwd_launches, composite.bwd_launches
+        dx = float((plain.base.g.xyz.detach() - mesh.base.g.xyz.detach()).abs().max())
+        del plain, mesh
+    finally:
+        if started:
+            dist.destroy_process_group()
+    dl = max(abs(a - b) for a, b in zip(plain_losses, mesh_losses))
+    print(f"16b plain losses {' '.join(f'{x:.7f}' for x in plain_losses)}")
+    print(f"16b mesh-1 losses {' '.join(f'{x:.7f}' for x in mesh_losses)}")
+    print(f"16b max loss diff {dl:.3g}, max xyz diff {dx:.3g}; step ms plain "
+          f"{plain_ms:.2f} (steps {' '.join(f'{1e3 * x:.2f}' for x in plain_t)}), "
+          f"mesh-1 {mesh_ms:.2f} (steps {' '.join(f'{1e3 * x:.2f}' for x in mesh_t)}); "
+          f"device ms a step (profiler, 2 more steps) plain {plain_dev:.2f}, mesh-1 "
+          f"{mesh_dev:.2f}; forward launches {fwd}, backward launches {bwd} ({smi})")
+    check(dl <= mesh1_parity.TOL, f"mesh-1 losses off the plain ones by {dl}")
+    check(fwd == bwd == steps + 2, f"mesh-1: {fwd} forward and {bwd} backward "
+                                   f"launches for {steps + 2} steps")
+    composite.fwd_launches = composite.bwd_launches = 0
+    tool = mesh1_parity.main(["--device", "cuda"])
+    tool_launches = (composite.fwd_launches, composite.bwd_launches)
+    check(tool_launches == (8, 8), f"mesh1_parity launches {tool_launches}")
+    return ({"mesh1_nccl": (fwd, bwd), "mesh1_parity_tool": tool_launches},
+            dict(max_loss_diff=dl, max_xyz_diff=dx, plain_ms=plain_ms,
+                 mesh_ms=mesh_ms, plain_device_ms=plain_dev,
+                 mesh_device_ms=mesh_dev, tool=tool))
+
+
+def bench_batch_path(smi):
+    """Step 16c: `BAGS_TPU_BENCH_BATCH=2` through `cli.bench --large`: its
+    JSON line (pixels/s counting both views) and 2 forward and 2 backward
+    launches a step. Returns (forward, backward)."""
+    from bags_tpu_torch.cli import bench as bench_cli
+    from bags_tpu_torch.raster import composite
+
+    composite.fwd_launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    line = bench_cli.main(large=True, batch_cams=2)
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    print(f"16c bench --large, BAGS_TPU_BENCH_BATCH=2: {line['value']} pixels/s "
+          f"({smi}), {time.perf_counter() - t0:.1f} s, forward launches {fwd}, "
+          f"backward launches {bwd}")
+    steps = 2 * (bench_cli.ITERS + 1)
+    check(line["value"] > 0 and fwd == bwd == steps,
+          f"bench K = 2: {line}, {fwd} / {bwd} launches for {steps}")
+    return fwd, bwd
+
+
 def main():
     import torch
 
@@ -2509,9 +2745,8 @@ def main():
     # 8. restore in the render CLI, test-time pose optimisation
     restore_path(train_model, data)
     lap(8)
-    # 9. where a training step's time goes
+    # 9. where a training step's time goes (the state stays for step 16)
     stagebench.train_step_stages(state, scene, cfg, device)
-    del state, scene
     lap(9)
     # 10. this slice's main path: the profiling tools
     launches = tools_path(device)
@@ -2624,7 +2859,25 @@ def main():
     print(f"step 15e took {time.perf_counter() - t1:.1f} s")
     lap(15)
 
-    # 16. the kernels line, then the device line
+    # 16. slice 6's first part: camera batches and mesh-1 on step 7's state
+    t1 = time.perf_counter()
+    k2 = batch_cams_path(state, cfg, scene, device, smi)
+    print(f"step 16a took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    mesh_launches, _ = mesh1_path(state, cfg, scene, device, smi)
+    del state, scene
+    print(f"step 16b took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    bench_k2 = bench_batch_path(smi)
+    print(f"step 16c took {time.perf_counter() - t1:.1f} s")
+    for name, (fwd, bwd) in {"train_step_batch_cams_2": k2,
+                             "bench_large_batch_cams_2": bench_k2,
+                             **mesh_launches}.items():
+        fwd_entry["launches_by_path"][name] = fwd
+        bwd_entry["launches_by_path"][name] = bwd
+    lap(16)
+
+    # 17. the kernels line, then the device line
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("step seconds " + json.dumps(step_s))
     shutil.rmtree(WORK, ignore_errors=True)

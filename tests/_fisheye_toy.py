@@ -50,15 +50,17 @@ def lens_np(p):
             for f in LENS_FIELDS}
 
 
-def build(apply2gt: bool, vig_shift: bool, hybrid: bool = False) -> dict:
+def build(apply2gt: bool, vig_shift: bool, hybrid: bool = False,
+          batch_cams: int = 1) -> dict:
     """The JAX side: config, setup, control points, fisheye GT, the
     CalibState before the first step and the jitted step (with the lens
     stepping and, with vig_shift, vignetting and the pupil shift; with
     hybrid, the specular colour of `toy_asg` features and the seed-0
-    specular MLP)."""
+    specular MLP; batch_cams views a step)."""
     cfg = jconfig.TrainConfig(
         opt=jconfig.OptimizationConfig(densify_from_iter=10_000,
-                                       position_lr_max_steps=200),
+                                       position_lr_max_steps=200,
+                                       batch_cams=batch_cams),
         calib=jconfig.CalibConfig(
             opt_cam=True, opt_intrinsic=True, r_t_lr=(0.003, 0.003),
             opt_distortion=True, outside_rasterizer=True, apply2gt=apply2gt,

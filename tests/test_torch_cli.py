@@ -3,6 +3,7 @@
 same dataset and JAX-written PLY model."""
 
 import dataclasses
+import json
 import os
 import re
 
@@ -111,22 +112,27 @@ def test_cli_max_instances_reports_drops(tmp_path, capsys):
     assert "past --max_instances" in capsys.readouterr().out
 
 
-def test_cli_unported_paths_raise(tmp_path):
+def test_cli_renders_a_batch_cams_checkpoint(tmp_path, capsys):
+    """A model trained with --batch_cams 2 (cfg.json says so) restores and
+    renders both splits; its restored cameras are the checkpoint's."""
+    from bags_tpu_torch.cli import train as train_cli
+
     root = str(tmp_path / "scene")
     os.makedirs(root)
     _lookat_scene(root)
-    from bags_tpu_torch.train.config import TrainConfig
-
-    for flag, slice_ in (("batch_cams", "slice 5"),):
-        model = str(tmp_path / f"ckpt_{flag}")
-        os.makedirs(model)
-        open(os.path.join(model, "chkpnt100.npz"), "wb").close()
-        cfg = TrainConfig()
-        cfg.opt.batch_cams = 2
-        with open(os.path.join(model, "cfg.json"), "w") as f:
-            f.write(cfg.to_json())
-        with pytest.raises(NotImplementedError, match=slice_):
-            port_cli.main(["-m", model, "-s", root, "--device", "cpu"])
+    model = str(tmp_path / "ckpt_batch_cams")
+    train_cli.main(["-s", root, "-m", model, "--device", "cpu", "--iterations", "2",
+                    "--sh_degree", "1", "--batch_cams", "2", "--opt_cam",
+                    "--test_iterations", "99", "--save_iterations", "99",
+                    "--checkpoint_iterations", "2", "--quiet"])
+    with open(os.path.join(model, "cfg.json")) as f:
+        assert json.load(f)["opt"]["batch_cams"] == 2
+    summary = port_cli.main(["-m", model, "-s", root, "--device", "cpu"])
+    assert "restored the training state" in capsys.readouterr().out
+    assert sorted(summary) == ["test", "train"]
+    assert all(np.isfinite(p) for v in summary.values() for p in v["psnr"])
+    # two steps of two distinct cameras each
+    assert np.load(os.path.join(model, "chkpnt2.npz"))["torch|cam_opt.count"].sum() == 4
 
 
 def test_cli_without_device_needs_a_card(tmp_path, monkeypatch):

@@ -129,8 +129,11 @@ def test_bench_prints_its_json_line(capsys):
     assert list(line) == ["metric", "value", "unit", "vs_baseline", "precision"]
     assert line["metric"] == "pixels_per_s_fwd_bwd" and line["precision"] == "exact"
     assert line["value"] > 0 and line["unit"] == "pixels/s/chip"
-    with pytest.raises(NotImplementedError, match="Queue 1 #14"):
-        bench_cli.main(batch_cams=2, device="cpu")
+    # BAGS_TPU_BENCH_BATCH=2: two views a step, pixels/s counting both
+    k2 = bench_cli.main(batch_cams=2, device="cpu", n=300, width=48, height=32,
+                        iters=2)
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == k2
+    assert k2["metric"] == "pixels_per_s_fwd_bwd" and k2["value"] > 0
 
 
 def test_bench_calib_prints_its_json_lines(capsys):

@@ -399,6 +399,63 @@ def test_hybrid_fisheye_step_on_card_matches_cpu(cuda):
     assert {".g.asg", ".spec.b3"} <= set(grads)
 
 
+def test_batch_cams_pose_step_on_card(cuda):
+    """A `--batch_cams 2` toy pose step (`pose_toy`'s cameras 1 and 0, its
+    GT for both) on the card: two launches of each kernel; the loss and
+    the stacked images within 2e-5 of the same step on the CPU; the loss
+    the mean of the two single-view steps' on the card and every gradient
+    the mean of theirs (atol 1e-5, rtol 1e-3). Card against CPU every
+    gradient within atol 1e-5, rtol 1e-3 but for at most 0.1 % of a
+    field's entries, each of those within 1e-4: on this toy's camera 1 a
+    single-view step already moves one Gaussian's xyz gradient by 4.7e-5
+    between the kernel and the plain version (an alpha decision at a
+    threshold; ROADMAP.md Queue 3)."""
+    from bags_tpu_torch.train.loop import train_step
+    from bags_tpu_torch.utils.testing import pose_toy
+
+    def step(dev, idx, gt=None):
+        t = pose_toy(dev, gt)
+        gts = torch.stack([t["gt"]] * len(idx)) if isinstance(idx, list) else t["gt"]
+        return train_step(t["state"], gts, idx, torch.zeros(3, device=dev),
+                          t["static"], RenderConfig(sh_degree=3), t["cfg"]), t["gt"]
+
+    cpu, gt = step(torch.device("cpu"), [1, 0])
+    before = composite.fwd_launches, composite.bwd_launches
+    card, _ = step(cuda, [1, 0], gt)
+    assert (composite.fwd_launches, composite.bwd_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert abs(float(card.loss) - float(cpu.loss)) <= 2e-5
+    torch.testing.assert_close(card.image.cpu(), cpu.image, atol=2e-5, rtol=0)
+    for k, v in cpu.grads.items():
+        d = (card.grads[k].detach().cpu() - v).abs()
+        off = d > 1e-5 + 1e-3 * v.abs()
+        assert off.sum() <= 1e-3 * off.numel() and (d * off).max() <= 1e-4, (
+            k, int(off.sum()), float((d * off).max()))
+    single = [step(cuda, i, gt)[0] for i in (1, 0)]
+    assert abs(float(card.loss) - sum(float(m.loss) for m in single) / 2) <= 1e-6
+    assert card.grads[".cam.dq"].shape == (2, 4)
+    for k, v in card.grads.items():
+        parts = [m.grads[k] for m in single]
+        want = torch.stack(parts) / 2 if k.startswith(".cam.") else sum(parts) / 2
+        torch.testing.assert_close(v, want, atol=1e-5, rtol=1e-3, msg=k)
+
+
+def test_mesh1_nccl_matches_plain_trainer(cuda):
+    """`tools/mesh1_parity.py` on the card: the sharded trainer in an NCCL
+    world of one against the plain trainer, 4 steps each (losses within
+    5e-4); both kernels launched once a step by each."""
+    import torch.distributed as dist
+
+    from bags_tpu_torch.tools import mesh1_parity
+
+    before = composite.fwd_launches, composite.bwd_launches
+    out = mesh1_parity.main(["--device", "cuda", "--steps", "4"])
+    assert (composite.fwd_launches, composite.bwd_launches) == (
+        before[0] + 8, before[1] + 8)
+    assert out["max_loss_diff"] <= mesh1_parity.TOL
+    assert not dist.is_initialized()
+
+
 def test_relocation_on_card_matches_cpu(cuda):
     """`relocate_dead`, `add_new_gaussians` and `position_noise` on
     `utils/testing.mcmc_toy` with the same injected draws on the card and

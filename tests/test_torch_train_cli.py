@@ -238,12 +238,52 @@ def test_render_cli_optimises_test_poses(trained, dataset, capsys):
     assert "loaded optimized test poses" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag, slice_", [
-    (["--mesh", "1"], "slice 5"), (["--batch_cams", "2"], "slice 5")])
-def test_train_cli_refuses_unported_paths(tmp_path, dataset, flag, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        train_cli.main(["-s", dataset, "-m", str(tmp_path / "m"), "--device", "cpu"]
-                       + flag)
+def _train_cli(model, dataset, *flags):
+    return train_cli.main(["-s", dataset, "-m", model, "--device", "cpu",
+                           "--iterations", "4", "--sh_degree", "1", "--opt_cam",
+                           "--r_t_noise", "0.05", "0.05", "--test_iterations", "4",
+                           "--save_iterations", "4", "--checkpoint_iterations", "4",
+                           "--seed", "2", *flags])
+
+
+def test_train_cli_batch_cams_trains(tmp_path, dataset):
+    """--batch_cams 2: four steps of two distinct cameras each (every
+    camera's Adam row stepped twice over the four cameras), a finite loss,
+    the evaluation, PLY and checkpoint."""
+    model = str(tmp_path / "k2")
+    summary = _train_cli(model, dataset, "--batch_cams", "2")
+    assert len(summary["losses"]) == 4 and np.isfinite(summary["losses"]).all()
+    assert summary["eval"]
+    ck = np.load(os.path.join(model, "chkpnt4.npz"))
+    assert ck["torch|cam_opt.count"].tolist() == [2, 2, 2, 2]
+    assert os.path.exists(os.path.join(model, "point_cloud", "iteration_4",
+                                       "point_cloud.ply"))
+
+
+def test_train_cli_mesh_1_trains_as_one_device(tmp_path, dataset):
+    """--mesh 1 --device cpu: the CLI starts a gloo world of one, trains
+    through the sharded step (every collective called) and ends the group;
+    its losses and checkpoint match the single-device CLI's."""
+    import torch.distributed as dist
+
+    plain = _train_cli(str(tmp_path / "plain"), dataset)
+    mesh = _train_cli(str(tmp_path / "mesh1"), dataset, "--mesh", "1")
+    assert not dist.is_initialized()
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+    with open(tmp_path / "mesh1" / "cfg.json") as f:
+        assert json.load(f)["mesh"] == 1
+    a = np.load(tmp_path / "mesh1" / "chkpnt4.npz")
+    b = np.load(tmp_path / "plain" / "chkpnt4.npz")
+    assert sorted(a.files) == sorted(b.files)
+    np.testing.assert_allclose(a["v2|.g.xyz"], b["v2|.g.xyz"], atol=1e-5)
+
+
+@pytest.mark.parametrize("preset", ["fisheye", "cubemap"])
+def test_train_cli_refuses_mesh_with_calibrated_modes(tmp_path, dataset, preset):
+    """--mesh with the fisheye or cubemap mode is the next slice (#14c)."""
+    with pytest.raises(NotImplementedError, match="#14c"):
+        train_cli.main(["-s", dataset, "-m", str(tmp_path / "m"), "--device", "cpu",
+                        "--preset", preset, "--mesh", "1"])
 
 
 def test_train_cli_without_device_needs_a_card(tmp_path, dataset, monkeypatch):
