@@ -271,8 +271,15 @@ def apply_distortion(lens_params: IResNetParams, p_view: torch.Tensor,
     if not apply2gt and final_hw is not None and \
             tuple(final_hw) != tuple(warped.shape[-2:]):
         warped = center_crop_resample(warped, final_hw[0], final_hw[1])
+    return warped, warp_mask(warped, apply2gt), flow
+
+
+def warp_mask(warped: torch.Tensor, apply2gt: bool) -> torch.Tensor:
+    """The validity mask (1, H, W) of a warped image (C, H, W): 0 where
+    both of the first two channels are exactly 0 (apply2render) or below
+    1e-5 (apply2gt)."""
     if apply2gt:
         empty = (warped[0] < 1e-5) & (warped[1] < 1e-5)
     else:
         empty = (warped[0] == 0.0) & (warped[1] == 0.0)
-    return warped, (~empty)[None].to(warped.dtype), flow
+    return (~empty)[None].to(warped.dtype)

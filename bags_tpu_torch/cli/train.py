@@ -35,8 +35,9 @@ views a step (the pose and fisheye modes; the cubemap mode refuses it, as
 in the JAX package).
 
 `--mesh N` trains tile-parallel over N ranks of `torch.distributed`
-(`dist/trainer.py::ShardedTrainer`; the pose mode, with or without
-`--hybrid` and `--mcmc`): one process per rank,
+(`dist/trainer.py`: `ShardedTrainer` in the pose mode, `ShardedCalibTrainer`
+in the fisheye and cubemap modes, with or without `--hybrid` and
+`--mcmc`): one process per rank,
 
     torchrun --nproc_per_node N -m bags_tpu_torch.cli.train ... --mesh N
 
@@ -44,8 +45,6 @@ on N cards (NCCL), or a world of one started by the CLI itself without
 torchrun for `--mesh 1`; with `--device cpu` the ranks use gloo. Only rank
 0 writes the logs, PNGs, PLYs and checkpoints (one file, as a single
 device writes it; `--start_checkpoint` takes one from any process count).
-The fisheye and cubemap modes under a mesh are not ported yet and raise
-`NotImplementedError` (ROADMAP.md Queue 1 #14c).
 """
 
 from __future__ import annotations
@@ -216,29 +215,20 @@ def args_to_config(args):
     )
 
 
-def check_ported(cfg) -> None:
-    """Raise NotImplementedError for a configuration that takes a path this
-    slice of the port does not have, naming its ROADMAP.md item."""
-    if cfg.mesh > 0 and (cfg.calib.outside_rasterizer or cfg.calib.cubemap):
-        raise NotImplementedError(
-            "--mesh with the fisheye or cubemap mode is not ported yet: "
-            "ROADMAP.md Queue 1 #14c (dist/calib.py)")
-
-
 def build_scene_and_trainer(cfg, device):
     """The Scene and Trainer exactly as training builds them from a
     (possibly cfg.json-restored) TrainConfig; the render CLI rebuilds its
     checkpoint template with it. `--outside_rasterizer` or `--cubemap`
     gives a CalibTrainer, a fisheye one's fisheye size read from the first
-    training view's `fish/images` pair; `--mesh N` a ShardedTrainer over
-    the process group (`dist/trainer.init_distributed` first)."""
+    training view's `fish/images` pair; `--mesh N` a ShardedTrainer or
+    ShardedCalibTrainer over the process group
+    (`dist/trainer.init_distributed` first)."""
     from ..data.scene import Scene
-    from ..dist.trainer import ShardedTrainer
+    from ..dist.trainer import ShardedCalibTrainer, ShardedTrainer
     from ..raster.render import RenderConfig
     from ..train.calibrated import CalibTrainer
     from ..train.loop import Trainer
 
-    check_ported(cfg)
     scene = Scene(cfg.model.source_path, eval_split=cfg.model.eval,
                   resolution=cfg.model.resolution,
                   r_t_noise=tuple(cfg.calib.r_t_noise),
@@ -260,7 +250,7 @@ def build_scene_and_trainer(cfg, device):
         from PIL import Image
         with Image.open(info0.fish_image_path) as im:
             fish_wh = im.size
-    return scene, CalibTrainer(
+    return scene, (ShardedCalibTrainer if cfg.mesh > 0 else CalibTrainer)(
         scene.gaussians, scene.alive, scene.train_cams, scene.static, cfg,
         scene_extent=scene.cameras_extent, gt_images=scene.train_image,
         focal_x=info0.focal_x, focal_y=info0.focal_y,
@@ -302,7 +292,6 @@ def main(argv=None) -> dict:
     if args.wandb_project_name is not None:
         print("the wandb mirror is not ported: metrics go to metrics.jsonl")
     cfg = args_to_config(args)
-    check_ported(cfg)
 
     from ..utils.device import resolve_device
 
@@ -379,11 +368,11 @@ def _train(args, cfg, device, lead: bool) -> dict:
         """(image, gt) of view i of a split, clipped / masked for metrics."""
         if fisheye_eval is not None:
             img, gt, _ = fisheye_eval_view(trainer, fisheye_eval, scene,
-                                           split, cams, i)
+                                           split, cams, i, population)
             return img, gt
         if cubemap_eval is not None:
             img, gt, _ = cubemap_eval_view(trainer, cubemap_eval, scene,
-                                           split, cams, i)
+                                           split, cams, i, population)
             return img, gt
         g, alive = population
         # no specular colour here, as in the JAX train CLI (train.py:361-366)

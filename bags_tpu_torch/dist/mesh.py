@@ -10,12 +10,17 @@ cameras, the alignment and the specular MLP are replicated.
 
 Every collective of the trainer goes through the functions here, on the
 default group, whatever its size: a world of one calls the same
-collectives as a world of four.
+collectives as a world of four. Each function adds its call and its bytes
+to `COUNTS` under its kind (`KINDS`); `reset_counts()` starts a new tally.
+The bytes are the collective's whole tensor as this rank sees it: an
+all-gather's output, a reduce-scatter's input, an all-reduce's tensor, a
+broadcast's tensors, the rows a halo exchange sends. Counting reads shapes
+only: it adds no synchronisation.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -32,6 +37,38 @@ CHUNK = 128
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
                    or dist.reduce_scatter_tensor)
+
+
+# The kinds of `COUNTS`: the packet all-gather of the sharded render and its
+# backward reduce-scatter, the image all-gather of the calibrated modes and
+# its backward reduce-scatter, the other all-gathers (sort keys, population,
+# checkpoints), the all-reduces, the broadcasts, and the halo rows sent
+# forward and their gradients sent back.
+KINDS = ("packet_all_gather", "packet_reduce_scatter", "image_all_gather",
+         "image_reduce_scatter", "all_gather", "all_reduce", "broadcast",
+         "halo_send", "halo_grad_send")
+COUNTS: Dict[str, List[int]] = {k: [0, 0] for k in KINDS}
+
+
+def reset_counts() -> None:
+    """Set every kind's calls and bytes to 0."""
+    for c in COUNTS.values():
+        c[0] = c[1] = 0
+
+
+def counts() -> Dict[str, tuple]:
+    """{kind: (calls, bytes)} of the kinds called since the last reset."""
+    return {k: (c[0], c[1]) for k, c in COUNTS.items() if c[0]}
+
+
+def _count(kind: str, nbytes: int) -> None:
+    c = COUNTS[kind]
+    c[0] += 1
+    c[1] += int(nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def rank_world() -> tuple[int, int]:
@@ -68,15 +105,30 @@ def local_budget(max_instances: Optional[int], n_ranks: int) -> Optional[int]:
     return -(-(max_instances // n_ranks) // CHUNK) * CHUNK
 
 
+def _gather(x: torch.Tensor, kind: str) -> torch.Tensor:
+    d = dist.get_world_size()
+    out = x.new_empty((d * x.shape[0],) + tuple(x.shape[1:]))
+    _all_gather(out, x.detach().contiguous())
+    _count(kind, _nbytes(out))
+    return out
+
+
+def _scatter_sum(g: torch.Tensor, kind: str) -> torch.Tensor:
+    """The sum over the ranks of their (D n, ...) tensors' n-row blocks,
+    rank r keeping block r."""
+    d = dist.get_world_size()
+    out = g.new_empty((g.shape[0] // d,) + tuple(g.shape[1:]))
+    _reduce_scatter(out, g.contiguous())
+    _count(kind, _nbytes(g))
+    return out
+
+
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every rank's (n, ...) block, concatenated in rank order (no grad; a
     bool tensor travels as uint8)."""
     if x.dtype == torch.bool:
         return all_gather_rows(x.to(torch.uint8)).to(torch.bool)
-    d = dist.get_world_size()
-    out = x.new_empty((d * x.shape[0],) + tuple(x.shape[1:]))
-    _all_gather(out, x.detach().contiguous())
-    return out
+    return _gather(x, "all_gather")
 
 
 class _AllGatherCols(torch.autograd.Function):
@@ -88,22 +140,76 @@ class _AllGatherCols(torch.autograd.Function):
     def forward(ctx, x):
         d = dist.get_world_size()
         f, n = x.shape
-        out = all_gather_rows(x)                                 # (D F, n)
+        out = _gather(x, "packet_all_gather")                    # (D F, n)
         return out.view(d, f, n).transpose(0, 1).reshape(f, d * n)
 
     @staticmethod
     def backward(ctx, g):
         d = dist.get_world_size()
         f, n = g.shape[0], g.shape[1] // d
-        out = g.new_empty((f, n))
-        _reduce_scatter(out, g.reshape(f, d, n).transpose(0, 1).reshape(d * f, n))
-        return out
+        return _scatter_sum(g.reshape(f, d, n).transpose(0, 1).reshape(d * f, n),
+                            "packet_reduce_scatter")
 
 
 def all_gather_cols_grad(x: torch.Tensor) -> torch.Tensor:
     """Differentiable all-gather of (F, n) blocks into (F, D n) (backward:
     a reduce-scatter). At D = 1 both ways are one copy of x."""
     return _AllGatherCols.apply(x)
+
+
+class _Depend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dep):
+        ctx.dep = (dep.shape, dep.dtype, dep.device)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, device = ctx.dep
+        return g, torch.zeros(shape, dtype=dtype, device=device)
+
+
+def depend(x: torch.Tensor, dep: torch.Tensor) -> torch.Tensor:
+    """A copy of x whose backward also gives `dep` a zero gradient, so that
+    the collectives behind `dep` run in this rank's backward as in its
+    peers' (a slab that holds no instance does not depend on the gathered
+    packet, and its peers' backward waits for its reduce-scatter)."""
+    return _Depend.apply(x, dep)
+
+
+class _AllGatherImageRows(torch.autograd.Function):
+    """(C, Hl, W) slabs -> (C, D Hl, W), the ranks' rows in rank order; the
+    backward reduce-scatters the cotangent: each rank's slab gets the sum
+    over ranks of the gradients of its rows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        d = dist.get_world_size()
+        c, h, w = x.shape
+        out = _gather(x, "image_all_gather")                     # (D C, Hl, W)
+        return out.view(d, c, h, w).transpose(0, 1).reshape(c, d * h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = dist.get_world_size()
+        c, h, w = g.shape[0], g.shape[1] // d, g.shape[2]
+        return _scatter_sum(g.reshape(c, d, h, w).transpose(0, 1).reshape(d * c, h, w),
+                            "image_reduce_scatter")
+
+
+def all_gather_image_rows(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable all-gather of each rank's (C, Hl, W) slab into the
+    (C, D Hl, W) frame (backward: a reduce-scatter of the frame's
+    gradient). At D = 1 both ways are one copy of x."""
+    return _AllGatherImageRows.apply(x)
+
+
+def broadcast_(tensors: List[torch.Tensor], src: int = 0) -> None:
+    """Overwrite each tensor, in place, with rank `src`'s (no grad)."""
+    with torch.no_grad():
+        for t in tensors:
+            dist.broadcast(t, src)
+            _count("broadcast", _nbytes(t))
 
 
 def all_reduce_sum(tensors: List[torch.Tensor]) -> None:
@@ -113,16 +219,20 @@ def all_reduce_sum(tensors: List[torch.Tensor]) -> None:
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
     dist.all_reduce(flat)
+    _count("all_reduce", _nbytes(flat))
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
 
 
-def _p2p(ops) -> None:
+def _p2p(ops, kind: str) -> None:
+    """Run `ops`, pairs of a send and then a receive, and count the sent
+    bytes."""
     if ops:
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        _count(kind, sum(_nbytes(op.tensor) for op in ops[::2]))
 
 
 class HaloExchange(torch.autograd.Function):
@@ -145,7 +255,7 @@ class HaloExchange(torch.autograd.Function):
         if rank < d - 1:
             ops += [dist.P2POp(dist.isend, x[:, -halo:].contiguous(), rank + 1),
                     dist.P2POp(dist.irecv, bot, rank + 1)]
-        _p2p(ops)
+        _p2p(ops, "halo_send")
         ctx.shape = x.shape
         return top, bot
 
@@ -163,7 +273,7 @@ class HaloExchange(torch.autograd.Function):
         if rank < d - 1:
             ops += [dist.P2POp(dist.isend, g_bot.contiguous(), rank + 1),
                     dist.P2POp(dist.irecv, from_below, rank + 1)]
-        _p2p(ops)
+        _p2p(ops, "halo_grad_send")
         grad[:, :halo] += from_above
         grad[:, -halo:] += from_below
         return grad, None

@@ -51,7 +51,7 @@ from ..train.loop import (StepMetrics, TrainState, accumulate_stats,
                           split_views, step_optimizers, zero_step_grads)
 from ..train.losses import ssim_map
 from .mesh import (HaloExchange, all_gather_cols_grad, all_gather_rows,
-                   all_reduce_sum, local_budget, rank_world, row_block,
+                   all_reduce_sum, depend, local_budget, rank_world, row_block,
                    tiles_y_local)
 
 HALO = 5  # the SSIM window's half width: 11 // 2
@@ -100,19 +100,22 @@ def render_slab(g: Gaussians, alive: torch.Tensor, cam: CameraParams,
                 align: Optional[GlobalAlignment] = None,
                 probe2d: Optional[torch.Tensor] = None,
                 abs_probe: Optional[torch.Tensor] = None,
-                extra: Optional[torch.Tensor] = None) -> SlabRender:
+                extra: Optional[torch.Tensor] = None,
+                shift: Optional[torch.Tensor] = None) -> SlabRender:
     """This rank's slab of the view (module docstring, steps 1-4): the
     single-device render's `rasterize` on the gathered projection, over
     the slab's tile rows. g, alive, extra, probe2d, abs_probe: this rank's
     block of rows (the probes' gradients come back to it through the
     gather). With `rcfg.max_instances`, each rank's budget is
     `mesh.local_budget` of it; with `rcfg.sort_by_distance` the camera
-    distances are gathered beside the packet."""
+    distances are gathered beside the packet. shift: the entrance-pupil
+    shift of the fisheye mode (`project_gaussians`' shift_factors)."""
     rank, d = rank_world()
     ty = tiles_y_local(static, d)
     proj = project_gaussians(
         g.xyz, g.scaling(), g.quats, g.opacity(alive), g.sh_coeffs(), cam,
-        static, rcfg.sh_degree, align=align, extra_color=extra)
+        static, rcfg.sh_degree, align=align, extra_color=extra,
+        shift_factors=shift)
     if probe2d is not None:
         proj = dataclasses.replace(proj, x2d=proj.x2d + probe2d[:, 0],
                                    y2d=proj.y2d + probe2d[:, 1])
@@ -123,6 +126,8 @@ def render_slab(g: Gaussians, alive: torch.Tensor, cam: CameraParams,
     slab, _, bins = rasterize(full, static.width, ty * TILE_H, bg,
                               local_budget(rcfg.max_instances, d), absp,
                               y0=y0, sort_key=sort_key)
+    if not slab.requires_grad:          # no instance in this slab
+        slab = depend(slab, full.x2d)
     return SlabRender(slab=slab, radii=full.radius, n_dropped=bins.n_dropped,
                       n_instances=bins.n_instances, y0=y0)
 

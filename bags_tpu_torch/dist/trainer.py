@@ -15,9 +15,11 @@
     single-device file (`train/checkpoint.py`); a load keeps this rank's
     block, so checkpoints move between process counts.
 
-`ShardedCalibTrainer` (the fisheye and cubemap modes under a mesh,
-`bags_tpu/dist/trainer.py:179`, `dist/calib.py`) is not ported yet
-(ROADMAP.md Queue 1 #14c).
+`ShardedCalibTrainer` (`bags_tpu/dist/trainer.py:179`) is `CalibTrainer`
+over the same blocks: the fisheye and cubemap modes with the steps of
+`dist/calib.py`, the lens or cubemap net pre-fitted on every rank and
+rank 0's broadcast, and calibrated checkpoints that move between process
+counts and to and from `CalibTrainer`.
 """
 
 from __future__ import annotations
@@ -34,12 +36,16 @@ from ..core.camera import CameraStatic
 from ..model.densify import DensifyResult, DensifyStats, zero_moments_at
 from ..model.gaussians import Gaussians
 from ..raster.render import RenderConfig
+from ..train.calibrated import (CalibTrainer, load_calib_checkpoint,
+                                save_calib_checkpoint)
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.config import TrainConfig
 from ..train.loop import (StepMetrics, Trainer, densify_population,
                           mcmc_noise_step, relocate_population)
-from .mesh import (all_gather_rows, all_reduce_sum, padded_height, rank_world,
-                   row_block)
+from .calib import (fisheye_gt_rows, sharded_cubemap_step,
+                    sharded_fisheye_step)
+from .mesh import (all_gather_rows, all_reduce_sum, broadcast_, padded_height,
+                   rank_world, row_block)
 from .sharded import sharded_train_step
 
 
@@ -113,14 +119,14 @@ class ShardedTrainer(Trainer):
     # -- the population transforms on the whole population ---------------
 
     def n_alive(self) -> int:
-        n = self.state.alive.sum().to(torch.float64).reshape(1)
+        n = self.base.alive.sum().to(torch.float64).reshape(1)
         all_reduce_sum([n])
         return int(n[0])
 
     @torch.no_grad()
     def _gather(self):
         """(Gaussians, alive, statistics) of the whole population."""
-        st = self.state
+        st = self.base
         g = Gaussians(**{k: all_gather_rows(v) for k, v in st.g.fields().items()})
         stats = DensifyStats(*(all_gather_rows(getattr(st.stats, f))
                                for f in ("grad_accum", "grad_accum_abs",
@@ -133,7 +139,7 @@ class ShardedTrainer(Trainer):
         """Keep this rank's block of a transformed population: its rows
         into the leaves, its alive mask, its Adam moments zeroed at the
         reset rows."""
-        st = self.state
+        st = self.base
         for k, t in st.g.fields().items():
             t.copy_(getattr(g, k)[self.rows])
         st.alive = alive[self.rows].clone()
@@ -141,22 +147,22 @@ class ShardedTrainer(Trainer):
 
     def densify(self, max_screen: float) -> DensifyResult:
         g, alive, stats = self._gather()
-        res = densify_population(g, alive, stats, self.state.gen, self.cfg,
+        res = densify_population(g, alive, stats, self.base.gen, self.cfg,
                                  self.scene_extent, max_screen)
         self._keep(g, res.alive, res.reset_mask)
-        self.state.stats = DensifyStats.zeros(self.state.capacity,
-                                              self.state.alive.device)
+        self.base.stats = DensifyStats.zeros(self.base.capacity,
+                                             self.base.alive.device)
         return res
 
     def relocate(self):
         g, alive, _ = self._gather()
         alive, reset, n_rel, n_add = relocate_population(
-            g, alive, self.state.gen, self.cfg)
+            g, alive, self.base.gen, self.cfg)
         self._keep(g, alive, reset)
         return n_rel, n_add
 
     def add_noise(self) -> None:
-        st = self.state
+        st = self.base
         eps = torch.randn((self.full_capacity, 3), generator=st.gen,
                           device=st.gen.device)
         mcmc_noise_step(st, self.cfg, eps=eps[self.rows])
@@ -174,3 +180,58 @@ class ShardedTrainer(Trainer):
 
     def load_checkpoint(self, path: str, with_optimizer: bool = True) -> None:
         load_checkpoint(path, self.state, with_optimizer, rows=self.rows)
+
+
+class ShardedCalibTrainer(CalibTrainer, ShardedTrainer):
+    """`CalibTrainer` over the ranks of the default process group (`--mesh N`
+    with `--outside_rasterizer` or `--cubemap`; `ShardedCalibTrainer`,
+    trainer.py:179): `CalibTrainer`'s setup, CalibState, schedules, lens
+    window, pre-fits and evaluation around `ShardedTrainer`'s row blocks,
+    population transforms and GT slabs (the base classes in this order,
+    so `CalibTrainer.__init__` builds its state on `ShardedTrainer`'s). Every
+    rank pre-fits the lens or cubemap net and then takes rank 0's
+    (broadcast), so the replicated nets are alike bit for bit.
+
+    The fisheye step's GT is sharded by fisheye output rows, zero-padded to
+    D ceil(fh / D) rows; with `--apply2gt` every rank takes it whole. The
+    cubemap step's GT is sharded as the pose path's. `--batch_cams > 1`
+    raises (trainer.py:205-207). Checkpoints are `CalibTrainer`'s file,
+    written by rank 0 from the gathered blocks, so they interchange with
+    `CalibTrainer` and any process count."""
+
+    def __init__(self, g, alive, cams, static, cfg: TrainConfig,
+                 scene_extent: float, gt_images, focal_x: float,
+                 focal_y: float, persp_wh, fish_wh=None, source_path: str = "",
+                 bg=None, rcfg: Optional[RenderConfig] = None, seed: int = 0,
+                 fish_images=None):
+        if cfg.opt.batch_cams > 1:
+            raise ValueError("--batch_cams > 1 is not supported with the "
+                             "sharded fisheye/cubemap calibrated modes")
+        super().__init__(g, alive, cams, static, cfg, scene_extent, gt_images,
+                         focal_x, focal_y, persp_wh, fish_wh=fish_wh,
+                         source_path=source_path, bg=bg, rcfg=rcfg, seed=seed,
+                         fish_images=fish_images)
+        net = self.state.cubemap_net if self.mode == "cubemap" else self.state.lens
+        broadcast_(list(net.named_tensors().values()))
+
+    def step(self, idx: int, gt: torch.Tensor, it: Optional[int] = None
+             ) -> StepMetrics:
+        rcfg = dataclasses.replace(self.rcfg, sh_degree=self.active_sh_degree)
+        if self.mode == "cubemap":
+            return sharded_cubemap_step(
+                self.state, self.slab(gt), idx, self.bg, self.sub_q[idx],
+                self.sub_t[idx], self.setup, rcfg, self.cfg, self.schedules)
+        opt_lens, use_vig = self.lens_window(
+            self.base.step + 1 if it is None else it)
+        return sharded_fisheye_step(
+            self.state, fisheye_gt_rows(gt, self.cfg.calib.apply2gt),
+            self.p_view, idx, self.bg,
+            self.setup, rcfg, self.cfg, self.schedules, opt_lens, use_vig)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Every rank gathers; rank 0 writes `CalibTrainer`'s file."""
+        save_calib_checkpoint(path, self.state, gather=all_gather_rows,
+                              write=self.rank == 0)
+
+    def load_checkpoint(self, path: str, with_optimizer: bool = True) -> None:
+        load_calib_checkpoint(path, self.state, with_optimizer, rows=self.rows)

@@ -203,10 +203,14 @@ def _calib_leaves(cs: CalibState) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_calib_checkpoint(path: str, cs: CalibState) -> None:
+def save_calib_checkpoint(path: str, cs: CalibState,
+                          gather: Optional[Callable] = None,
+                          write: bool = True) -> None:
     """Write `cs`: the base state under `.base`, then the calibration
     leaves and each group's step count and moments (the u_vecs' as
-    zeros) under their JAX names."""
+    zeros) under their JAX names. gather, write: a sharded base's, as
+    `checkpoint.save_checkpoint` takes them (the calibration leaves are
+    replicated)."""
     arrays = {k: t.detach().cpu().numpy() for k, t in _calib_leaves(cs).items()}
     for name, (named, st) in cs.groups().items():
         arrays[name + ".count"] = np.asarray(st.count, np.int32)
@@ -220,17 +224,19 @@ def save_calib_checkpoint(path: str, cs: CalibState) -> None:
                     arrays[f"{name}.{m}{k}"] = np.zeros(tuple(t.shape),
                                                         np.float32)
     save_checkpoint(path, cs.base, pre=".base",
-                    extra={PREFIX + k: v for k, v in arrays.items()})
+                    extra={PREFIX + k: v for k, v in arrays.items()},
+                    gather=gather, write=write)
 
 
 @torch.no_grad()
 def load_calib_checkpoint(path: str, cs: CalibState,
-                          with_optimizer: bool = True) -> CalibState:
+                          with_optimizer: bool = True,
+                          rows: Optional[slice] = None) -> CalibState:
     """Restore `cs` in place from either package's checkpoint and return
-    it: the base state as `load_checkpoint` restores it (under `.base`),
-    and, `with_optimizer` or not, the calibration leaves and their Adam
-    states, which carry the JAX names."""
-    load_checkpoint(path, cs.base, with_optimizer, pre=".base")
+    it: the base state as `load_checkpoint` restores it (under `.base`;
+    rows: a sharded base's block), and, `with_optimizer` or not, the
+    calibration leaves and their Adam states, which carry the JAX names."""
+    load_checkpoint(path, cs.base, with_optimizer, pre=".base", rows=rows)
     data = np.load(path)
     leaves = _calib_leaves(cs)
     for name, (named, st) in cs.groups().items():
@@ -254,6 +260,70 @@ def _proj_scale(cam: CameraParams) -> torch.Tensor:
 def _grads_or_zeros(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: (p.grad if p.grad is not None else torch.zeros_like(p))
             for k, p in named.items()}
+
+
+def begin_fisheye_step(state: CalibState, opt_lens: bool) -> None:
+    """Clear the gradients a fisheye step takes (the lens net's trained
+    tensors require one only with opt_lens)."""
+    for p in state.lens.named_tensors(trained_only=True).values():
+        p.requires_grad_(opt_lens)
+        p.grad = None
+    for p in [state.vig.a_k, state.vig.beta_k, state.shift]:
+        p.grad = None
+    zero_spec_grads(state.base)
+
+
+def fisheye_replicated(state: CalibState, cfg: TrainConfig, opt_lens: bool,
+                       use_vignetting: bool) -> List[torch.Tensor]:
+    """The calibration tensors a fisheye step trains: the lens net's with
+    opt_lens, the vignetting's with use_vignetting, the shift with
+    `--opt_shift`."""
+    out = []
+    if opt_lens:
+        out += list(state.lens.named_tensors(trained_only=True).values())
+    if use_vignetting:
+        out += list(state.vig.named_tensors().values())
+    if cfg.calib.opt_shift:
+        out.append(state.shift)
+    return out
+
+
+def fisheye_optimizers(state: CalibState, cfg: TrainConfig, views, cam_idx,
+                       schedules, opt_lens: bool, use_vignetting: bool,
+                       radii: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """After a fisheye step's backward: the Gaussians', specular MLP's and
+    camera rows' steps (`loop.step_optimizers`, no alignment), the lens
+    net's (with opt_lens) behind the NaN guard, the vignetting's (with
+    use_vignetting) and the shift's (`--opt_shift`) moments steps, the
+    views' densify statistics (radii: each view's) and the step count.
+    Returns every gradient by its JAX name."""
+    b = state.base
+    grads = step_optimizers(b, cfg, views, cam_idx, alignment=False)
+    if opt_lens:
+        lens_named = state.lens.named_tensors(trained_only=True)
+        lens_grads = _grads_or_zeros(lens_named)
+        grads.update({".lens" + k: v for k, v in lens_grads.items()})
+        bad = torch.stack([~torch.isfinite(v).all()
+                           for v in lens_grads.values()]).any()
+        lens_grads = {k: torch.where(bad, torch.zeros_like(v), v)
+                      for k, v in lens_grads.items()}
+        adam_moments_step(lens_named, lens_grads, state.lens_opt,
+                          schedules["lens"](b.step))
+    if use_vignetting:
+        vig_named = state.vig.named_tensors()
+        vig_grads = _grads_or_zeros(vig_named)
+        grads.update({".vig" + k: v for k, v in vig_grads.items()})
+        adam_moments_step(vig_named, vig_grads, state.vig_opt,
+                          schedules["vig"](b.step))
+    if cfg.calib.opt_shift:
+        shift_grads = _grads_or_zeros({"": state.shift})
+        grads[".shift"] = shift_grads[""]
+        adam_moments_step({"": state.shift}, shift_grads, state.shift_opt,
+                          schedules["shift"](b.step))
+    accumulate_stats(b, [v.probe.grad for v in views],
+                     [v.absp.grad for v in views], radii)
+    b.step += 1
+    return grads
 
 
 def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
@@ -288,13 +358,7 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
     apply2gt = calib.apply2gt
     batch, idxs, gts = split_views(cam_idx, fish_gt)
     views = sample_views(b, idxs, b.capacity)
-    lens_named = state.lens.named_tensors(trained_only=True)
-    for p in lens_named.values():
-        p.requires_grad_(opt_lens)
-        p.grad = None
-    for p in [state.vig.a_k, state.vig.beta_k, state.shift]:
-        p.grad = None
-    zero_spec_grads(b)
+    begin_fisheye_step(state, opt_lens)
 
     outs, images, losses = [], [], []
     for v, gt_k in zip(views, gts):
@@ -345,30 +409,8 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
     loss.backward()
     tick("backward")
 
-    grads = step_optimizers(b, cfg, views, cam_idx, alignment=False)
-    if opt_lens:
-        lens_grads = _grads_or_zeros(lens_named)
-        grads.update({".lens" + k: v for k, v in lens_grads.items()})
-        bad = torch.stack([~torch.isfinite(v).all()
-                           for v in lens_grads.values()]).any()
-        lens_grads = {k: torch.where(bad, torch.zeros_like(v), v)
-                      for k, v in lens_grads.items()}
-        adam_moments_step(lens_named, lens_grads, state.lens_opt,
-                          schedules["lens"](b.step))
-    if use_vignetting:
-        vig_named = state.vig.named_tensors()
-        vig_grads = _grads_or_zeros(vig_named)
-        grads.update({".vig" + k: v for k, v in vig_grads.items()})
-        adam_moments_step(vig_named, vig_grads, state.vig_opt,
-                          schedules["vig"](b.step))
-    if calib.opt_shift:
-        shift_grads = _grads_or_zeros({"": state.shift})
-        grads[".shift"] = shift_grads[""]
-        adam_moments_step({"": state.shift}, shift_grads, state.shift_opt,
-                          schedules["shift"](b.step))
-    accumulate_stats(b, [v.probe.grad for v in views],
-                     [v.absp.grad for v in views], [o.radii for o in outs])
-    b.step += 1
+    grads = fisheye_optimizers(state, cfg, views, cam_idx, schedules, opt_lens,
+                               use_vignetting, [o.radii for o in outs])
     tick("optimizers")
     image = images[0] if batch is None else torch.stack(images)
     return StepMetrics(loss=loss.detach(), l1=loss.detach(),
@@ -450,6 +492,48 @@ def _half_masks(circ: torch.Tensor) -> List[torch.Tensor]:
                      for f in cubemap_lib.FACES[1:]]
 
 
+def begin_cubemap_step(state: CalibState, cam_idx: int):
+    """The sampled camera's View (`loop.sample_views`, probes of the
+    state's capacity) with the cubemap net's and the specular MLP's
+    gradients cleared."""
+    for p in state.cubemap_net.named_tensors(trained_only=True).values():
+        p.requires_grad_(True)
+        p.grad = None
+    zero_spec_grads(state.base)
+    return sample_views(state.base, [cam_idx], state.base.capacity)[0]
+
+
+def cubemap_optimizers(state: CalibState, cfg: TrainConfig, view, cam_idx: int,
+                       schedules, radii: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """After a cubemap step's backward: the Gaussians' Adam step, the camera
+    row's row Adam step, the specular MLP's, the cubemap net's moments step
+    behind the NaN guard, the densify statistics of the main render (its
+    radii) and the step count. Returns every gradient by its JAX name."""
+    b = state.base
+    b.g_opt.param_groups[0]["lr"] = b.xyz_sched(b.step)
+    b.g_opt.step()
+    row_grads = {f: view.row[f].grad for f in CAMERA_FIELDS}
+    row_adam_update(b.cams, b.cam_opt, row_grads, cam_idx,
+                    camera_lrs(cfg.calib, b.step))
+    cub_named = state.cubemap_net.named_tensors(trained_only=True)
+    cub_grads = _grads_or_zeros(cub_named)
+    grads = {f".g.{k}": t.grad for k, t in b.g.fields().items()}
+    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
+    grads.update(step_specular(b))
+    grads.update({".cubemap_net" + k: v for k, v in cub_grads.items()})
+    bad = torch.stack([~torch.isfinite(v).all()
+                       for v in cub_grads.values()]).any()
+    cub_grads = {k: torch.where(bad, torch.zeros_like(v), v)
+                 for k, v in cub_grads.items()}
+    adam_moments_step(cub_named, cub_grads, state.cubemap_opt,
+                      schedules["cubemap"](b.step))
+    with torch.no_grad():
+        b.stats = update_stats(b.stats, view.probe.grad, view.absp.grad, radii,
+                               radii > 0)
+    b.step += 1
+    return grads
+
+
 def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
                        bg: torch.Tensor, sub_q: torch.Tensor,
                        sub_t: torch.Tensor, setup: CubemapSetup,
@@ -473,26 +557,16 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     its MLP. timer(name), if given, is called after each stage."""
     tick = timer or (lambda name: None)
     b = state.base
-    g, cams = b.g, b.cams
+    g = b.g
     rcfg = dataclasses.replace(rcfg, sort_by_distance=True)
-    row = {f: getattr(cams, f)[cam_idx].detach().clone().requires_grad_(True)
-           for f in CAMERA_FIELDS}
-    cam = CameraParams(q_init=cams.q_init[cam_idx],
-                       t_init=cams.t_init[cam_idx], **row)
-    probe = torch.zeros((b.capacity, 2), device=g.xyz.device,
-                        requires_grad=True)
-    absp = torch.zeros_like(probe, requires_grad=True)
-    cub_named = state.cubemap_net.named_tensors(trained_only=True)
-    for p in cub_named.values():
-        p.requires_grad_(True)
-        p.grad = None
-    zero_spec_grads(b)
+    view = begin_cubemap_step(state, cam_idx)
 
     gauss = (g.xyz, g.scaling(), g.quats, g.opacity(b.alive), g.sh_coeffs())
-    extra = extra_color(b, cam)
-    main_cam, *side_cams = face_cameras(cam, sub_q, sub_t)
+    extra = extra_color(b, view.cam)
+    main_cam, *side_cams = face_cameras(view.cam, sub_q, sub_t)
     main = render(*gauss, main_cam, setup.static, rcfg, bg=bg, align=b.align,
-                  probe2d=probe, abs_probe=absp, extra_color=extra, timer=tick)
+                  probe2d=view.probe, abs_probe=view.absp, extra_color=extra,
+                  timer=tick)
     outs = [main] + [render(*gauss, c, setup.static, rcfg, bg=bg,
                             align=b.align, extra_color=extra, timer=tick)
                      for c in side_cams]
@@ -513,26 +587,7 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     loss.backward()
     tick("backward")
 
-    b.g_opt.param_groups[0]["lr"] = b.xyz_sched(b.step)
-    b.g_opt.step()
-    row_grads = {f: row[f].grad for f in CAMERA_FIELDS}
-    row_adam_update(cams, b.cam_opt, row_grads, cam_idx,
-                    camera_lrs(cfg.calib, b.step))
-    cub_grads = _grads_or_zeros(cub_named)
-    grads = {f".g.{k}": t.grad for k, t in g.fields().items()}
-    grads.update({f".cam.{f}": v for f, v in row_grads.items()})
-    grads.update(step_specular(b))
-    grads.update({".cubemap_net" + k: v for k, v in cub_grads.items()})
-    bad = torch.stack([~torch.isfinite(v).all()
-                       for v in cub_grads.values()]).any()
-    cub_grads = {k: torch.where(bad, torch.zeros_like(v), v)
-                 for k, v in cub_grads.items()}
-    adam_moments_step(cub_named, cub_grads, state.cubemap_opt,
-                      schedules["cubemap"](b.step))
-    with torch.no_grad():
-        b.stats = update_stats(b.stats, probe.grad, absp.grad, main.radii,
-                               main.visibility)
-    b.step += 1
+    grads = cubemap_optimizers(state, cfg, view, cam_idx, schedules, main.radii)
     tick("optimizers")
     return StepMetrics(loss=loss.detach(), l1=loss.detach(),
                             n_alive=b.alive.sum(),
@@ -671,13 +726,24 @@ def _timed(fn, device) -> float:
     return time.perf_counter() - t0
 
 
+def _eval_state(trainer: CalibTrainer, population) -> CalibState:
+    """The trainer's state, or with population = (Gaussians, alive) (a
+    sharded trainer's gathered population) the state on those."""
+    if population is None:
+        return trainer.state
+    g, alive = population
+    return dataclasses.replace(trainer.state, base=dataclasses.replace(
+        trainer.base, g=g, alive=alive))
+
+
 def fisheye_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
-                      cams: CameraParams, i: int):
+                      cams: CameraParams, i: int, population=None):
     """View i of a split as evaluation and the render CLI take it: camera i
     of `cams` at the extended FoV, through `eval_one` (of
     `make_fisheye_eval_fn`) against its fisheye GT, or its perspective
-    image where the view has no fisheye pair. Returns (image, gt,
-    instances dropped)."""
+    image where the view has no fisheye pair; population: (Gaussians,
+    alive) in place of the trainer's own (under a mesh, the gathered
+    one). Returns (image, gt, instances dropped)."""
     test = split == "test"
     infos = scene.test_infos if test else scene.train_infos
     gt_fn = ((scene.test_fish_image if test else scene.fish_image)
@@ -686,7 +752,7 @@ def fisheye_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
     cam = dataclasses.replace(
         cams[i], fovx=torch.full_like(cams.fovx[i], trainer.setup.fovx),
         fovy=torch.full_like(cams.fovy[i], trainer.setup.fovy))
-    return eval_one(trainer.state, cam, gt_fn(i))
+    return eval_one(_eval_state(trainer, population), cam, gt_fn(i))
 
 
 def make_fisheye_eval_fn(trainer: CalibTrainer,
@@ -776,15 +842,16 @@ def make_cubemap_eval_fn(trainer: CalibTrainer):
 
 
 def cubemap_eval_view(trainer: CalibTrainer, eval_one, scene, split: str,
-                      cams: CameraParams, i: int):
+                      cams: CameraParams, i: int, population=None):
     """View i of a split through `eval_one` (of `make_cubemap_eval_fn`)
     against its perspective image: a training view with the sub-camera
-    poses the trainer built at its start, a test view with its own.
-    Returns (image, gt, instances dropped)."""
+    poses the trainer built at its start, a test view with its own;
+    population as `fisheye_eval_view` takes it. Returns (image, gt,
+    instances dropped)."""
     if split == "test":
         sub_q, sub_t = sub_camera_poses(cams[i:i + 1])
         sub_q, sub_t, gt = sub_q[0], sub_t[0], scene.test_image(i)
     else:
         sub_q, sub_t = trainer.sub_q[i], trainer.sub_t[i]
         gt = scene.train_image(i)
-    return eval_one(trainer.state, cams[i], gt, sub_q, sub_t)
+    return eval_one(_eval_state(trainer, population), cams[i], gt, sub_q, sub_t)

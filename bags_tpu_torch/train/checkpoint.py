@@ -151,15 +151,15 @@ def _restore_adam(prefix: str, opt: torch.optim.Optimizer, names, data,
 
 
 def copy_leaves(data, path: str, leaves: dict,
-                rows: Optional[slice] = None) -> None:
-    """Copy the arrays `"v2|" + name` of `data` into the tensors of
+                rows: Optional[slice] = None, pre: str = "") -> None:
+    """Copy the arrays `"v2|" + pre + name` of `data` into the tensors of
     `leaves` ({name: tensor}); every one must be there, in its shape. With
     `rows`, a row leaf's block `rows` is copied."""
-    missing = [n for n in leaves if PREFIX + n not in data.files]
+    missing = [pre + n for n in leaves if PREFIX + pre + n not in data.files]
     if missing:
         raise ValueError(f"checkpoint {path} is missing leaves {missing[:8]}")
     for name, t in leaves.items():
-        arr = data[PREFIX + name]
+        arr = data[PREFIX + pre + name]
         if rows is not None and is_row_leaf(name):
             arr = arr[rows]
         if tuple(arr.shape) != tuple(t.shape):
@@ -180,9 +180,8 @@ def load_checkpoint(path: str, state: TrainState,
     restores only those, so a checkpoint the JAX package wrote loads too.
     rows: a sharded state's block of the Gaussian slots."""
     data = np.load(path)
-    copy_leaves(data, path, {pre + k: v for k, v in
-                             {**_model_leaves(state),
-                              **_spec_opt_leaves(state)}.items()}, rows)
+    copy_leaves(data, path, {**_model_leaves(state), **_spec_opt_leaves(state)},
+                rows, pre)
     state.step = int(data[PREFIX + pre + ".step"])
     if state.spec_opt is not None:
         state.spec_opt.count = int(data[f"{PREFIX}{pre}.spec_opt[0].count"])

@@ -196,7 +196,23 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      size; (c)
      `BAGS_TPU_BENCH_BATCH=2` through `cli.bench --large` (its pixels/s
      line, 2 forward and 2 backward launches a step);
- 17. prints the kernels line (JSON: the forward, the backward, the
+ 17. slice 6's second part at world size 1 over NCCL, at full width, on
+     the calibrated trainers steps 11 and 12 restore (no pre-fit, no
+     dataset and no restore of its own; run right after each of those
+     steps, so that each trainer is freed before the next step): for (a)
+     the fisheye mode, (b) the same state with `--apply2gt` (the trained
+     lens copied) and (c) the cubemap mode, `ShardedCalibTrainer` in a
+     world of one against the plain `CalibTrainer`, each a copy of one
+     state with one seed, densify off, 4 timed and 1 profiled steps: the
+     losses within 1e-5, Adam's first moments of the positions and of each
+     trained calibration group (the lens or cubemap net among them) within
+     2e-2 of the group's largest entry, the largest xyz and lens or
+     cubemap-net difference, each trainer's step ms and device ms, the
+     sharded trainer's launches (1 forward and 1 backward a fisheye step,
+     5 and 5 a cubemap step) and its collectives a step by kind from
+     `dist/mesh.py`'s counters (the image all-gather in (a) and (c),
+     none in (b)); its seconds in `step seconds` ("17ab", "17c", "17");
+ 18. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
      every variant's under "variants"; the forward's and the backward's
      launches by path, fisheye, cubemap, recovery, slice 5 and slice 6 paths
@@ -1455,7 +1471,7 @@ def fisheye_checks(model, data, device):
     render of train view 0 against their plain versions (with the fisheye
     loss's cotangents) with their times and bounds, and the fisheye step
     split by stage. Returns the forward's and the backward's numbers on
-    that view."""
+    that view, and the restored trainer and scene (for step 17)."""
     import numpy as np
     import torch
     from bags_tpu_torch import convert
@@ -1531,8 +1547,8 @@ def fisheye_checks(model, data, device):
                 "fisheye_view0_bound_ms": bnd[0], "fisheye_view0_bound_by": bnd[1],
                 "fisheye_view0_max_abs_err": err,
                 "fisheye_view0_instances": bins.n_instances}
-    return numbers(fwd_ms, fwd_plain, fb, fwd_err), numbers(bwd_ms, bwd_plain, bb,
-                                                           bwd_err)
+    return (numbers(fwd_ms, fwd_plain, fb, fwd_err),
+            numbers(bwd_ms, bwd_plain, bb, bwd_err), trainer, scene)
 
 
 # The cubemap phase (step 12): 8 cameras inside the Gaussian box of
@@ -1716,7 +1732,8 @@ def cubemap_checks(model, data, device):
     0's forward face and left face (sorted by distance) against their plain
     versions at step 5's and step 7's full-width criteria, with their
     times, bounds and instances, then the cubemap step split by stage.
-    Returns the forward's and the backward's numbers on those faces."""
+    Returns the forward's and the backward's numbers on those faces, and
+    the restored trainer and scene (for step 17)."""
     import torch
     from bags_tpu_torch.cli import render as render_cli
     from bags_tpu_torch.raster import composite
@@ -1767,7 +1784,7 @@ def cubemap_checks(model, data, device):
                             f"cubemap_{name}_instances": bins.n_instances})
     stagebench.cubemap_step_stages(trainer, gt, device,
                                    os.path.join(WORK, "cube_trace"))
-    return fwd_numbers, bwd_numbers
+    return fwd_numbers, bwd_numbers, trainer, scene
 
 
 # The MCMC window of step 14: relocations at iterations 10 and 20 of 30.
@@ -2483,6 +2500,31 @@ def timed_run(trainer, steps):
     return [h[1] for h in hist], [b - a for a, b in zip(marks, marks[1:])]
 
 
+def run_and_profile(trainer, steps, profiled):
+    """`timed_run(trainer, steps)`, then `profiled` more steps under the
+    profiler (the device's events alone: the host's take seconds to
+    process), then `trainer.close()`: (the losses, the median step ms after
+    the first, the steps' s, the device ms a step of the profiled steps)."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    losses, times = timed_run(trainer, steps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.run(iterations=profiled)
+        torch.cuda.synchronize()
+    trainer.close()
+    # the kernels' and copies' time, as the profiler's table totals it
+    # (device events that are not user annotations)
+    device_ms = sum(e.self_device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / (1e3 * profiled)
+    check(device_ms > 0, "the profiler recorded no device time")
+    return losses, 1e3 * statistics.median(times[1:]), times, device_ms
+
+
 def batch_cams_path(state, cfg, scene, device, smi):
     """Step 16a: the K = 2 pose step (`--batch_cams 2`) at full width on the
     trained state of step 7. From copies of the same state: the step on
@@ -2571,8 +2613,6 @@ def mesh1_path(state, cfg, scene, device, smi):
     backward a step, 8 steps, counted over its runs alone). Then the port's
     `tools/mesh1_parity.py` at its toy size (4 steps each). Returns
     ({path: (forward, backward)}, the numbers)."""
-    import statistics
-
     import torch
     import torch.distributed as dist
     from bags_tpu_torch.dist.trainer import ShardedTrainer, init_distributed
@@ -2583,22 +2623,7 @@ def mesh1_path(state, cfg, scene, device, smi):
     steps = 6
 
     def run(trainer):
-        """The losses, the median step ms after the first, the steps' s and
-        the device ms a step of 2 more steps under the profiler."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        losses, times = timed_run(trainer, steps)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            trainer.run(iterations=2)
-            torch.cuda.synchronize()
-        trainer.close()
-        # the kernels' and copies' time, as the profiler's table totals it
-        # (device events that are not user annotations)
-        device_ms = sum(e.self_device_time_total for e in prof.events()
-                        if e.device_type == DeviceType.CUDA
-                        and not getattr(e, "is_user_annotation", False)) / 2e3
-        return losses, 1e3 * statistics.median(times[1:]), times, device_ms
+        return run_and_profile(trainer, steps, 2)
 
     t0 = time.perf_counter()
     _, started = init_distributed(device, 1)
@@ -2655,6 +2680,174 @@ def bench_batch_path(smi):
     check(line["value"] > 0 and fwd == bwd == steps,
           f"bench K = 2: {line}, {fwd} / {bwd} launches for {steps}")
     return fwd, bwd
+
+
+def calib_copy(cls, src, scene, mesh=0, apply2gt=None):
+    """A `cls` trainer (`CalibTrainer` or `ShardedCalibTrainer`) on a copy of
+    the calibrated trainer `src`'s population, cameras and calibration (the
+    lens and cubemap nets, vignetting, shift; a cubemap trainer's
+    sub-camera poses), with its options and seed but densify off and no
+    pre-fit, `--mesh mesh` and, given, `--apply2gt`, for step 17."""
+    import dataclasses
+
+    import torch
+    from bags_tpu_torch.model.gaussians import Gaussians
+    from bags_tpu_torch.train.config import TrainConfig
+
+    c = TrainConfig.from_json(src.cfg.to_json())
+    c.mesh, c.opt.densify_from_iter, c.calib.no_init_iresnet = mesh, 10 ** 9, True
+    if apply2gt is not None:
+        c.calib.apply2gt = apply2gt
+    fisheye = src.mode == "fisheye"
+    g, alive = src.population()
+    g = Gaussians(**{k: v.detach().clone() for k, v in g.fields().items()})
+    st = scene.static
+    tr = cls(g, alive.clone(), src.base.cams, st, c, scene.cameras_extent,
+             scene.train_image, *src.focal, (st.width, st.height),
+             fish_wh=src.setup.fish_hw[::-1] if fisheye else None, seed=c.seed,
+             fish_images=src.gt_images if fisheye else None)
+    with torch.no_grad():
+        for f in dataclasses.fields(tr.base.cams):
+            getattr(tr.base.cams, f.name).copy_(getattr(src.base.cams, f.name))
+        for name in ("lens", "cubemap_net", "vig"):
+            for a, b in zip(getattr(tr.state, name).named_tensors().values(),
+                            getattr(src.state, name).named_tensors().values()):
+                a.copy_(b)
+        tr.state.shift.copy_(src.state.shift)
+    if not fisheye:
+        tr.sub_q, tr.sub_t = src.sub_q, src.sub_t
+    return tr
+
+
+# Step 17's limits against its readings on an H100 (PERF.md §6, PR 12):
+# losses 6e-8 to 1.3e-7 apart; Adam's first moments of the positions and
+# of each trained calibration group off by 5e-7 to 2.8e-3 of the
+# group's largest entry (the gradients' atomic sums round in any order),
+# where a dropped update or a gradient counted twice is off by 0.5 or
+# more. The parameters themselves are no test: Adam moves an entry by
+# about its learning rate whatever the gradient's size, so 5 steps of the
+# lens (lr 1e-7) stay within 1e-6 of any other 5, a dropped update
+# included.
+CALIB_MESH1_LOSS_TOL = 1e-5
+MOMENT_TOL = 2e-2
+
+
+def first_moments(tr):
+    """{group: Adam's first moment, flattened}: the positions and each
+    calibration group with a moment, of a calibrated trainer `tr`."""
+    import torch
+
+    b = tr.base
+    out = {"xyz": b.g_opt.state[b.g.xyz]["exp_avg"].reshape(-1)}
+    for name, (named, opt) in tr.state.groups().items():
+        out[name] = torch.cat([opt.mu[k].reshape(-1) for k in named])
+    return out
+
+
+def calib_mesh1_path(label, src, scene, smi, apply2gt=None):
+    """Step 17 (slice 6's second part at world size 1 over NCCL, at full
+    width): `ShardedCalibTrainer` in the world of one that the caller
+    started against the plain `CalibTrainer`, each a `calib_copy` of the
+    restored calibrated trainer `src` (the fisheye one of step 11, with
+    `--apply2gt` given, or the cubemap one of step 12), 4 timed and 1
+    profiled steps each (the step GTs cached first): the losses within
+    `CALIB_MESH1_LOSS_TOL` of each other; Adam's first moments of the
+    positions and of every calibration group the plain trainer trained
+    within `MOMENT_TOL` of that group's largest entry, the lens or
+    cubemap net among them; the largest xyz and lens or cubemap-net
+    difference; each trainer's step ms (median of the last 3) and device
+    ms, the sharded trainer's launches (1 forward and 1 backward a
+    fisheye step, 5 and 5 a cubemap step) and its collectives a step by
+    kind. Returns ({path: (forward, backward)}, the numbers)."""
+    import torch
+    from bags_tpu_torch.dist import mesh as dmesh
+    from bags_tpu_torch.dist.trainer import ShardedCalibTrainer
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.train.calibrated import CalibTrainer
+
+    steps, profiled = 4, 1
+    fisheye = src.mode == "fisheye"
+    renders = 1 if fisheye else 5
+    for i in range(scene.n_train):
+        src.gt_images(i)
+    net = "lens" if fisheye else "cubemap_net"
+
+    def trained(tr):
+        return torch.cat([t.detach().reshape(-1) for t in getattr(
+            tr.state, net).named_tensors(trained_only=True).values()])
+
+    plain = calib_copy(CalibTrainer, src, scene, apply2gt=apply2gt)
+    plain_losses, plain_ms, plain_t, plain_dev = run_and_profile(plain, steps, profiled)
+    mesh = calib_copy(ShardedCalibTrainer, src, scene, mesh=1, apply2gt=apply2gt)
+    composite.fwd_launches = composite.bwd_launches = 0
+    dmesh.reset_counts()
+    mesh_losses, mesh_ms, mesh_t, mesh_dev = run_and_profile(mesh, steps, profiled)
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    n = steps + profiled
+    colls = {k: (c // n, b // n) for k, (c, b) in dmesh.counts().items()}
+    dx = float((plain.base.g.xyz.detach() - mesh.base.g.xyz.detach()).abs().max())
+    dnet = float((trained(plain) - trained(mesh)).abs().max())
+    moments = {}      # group: (largest plain entry, largest difference)
+    for (k, a), b in zip(first_moments(plain).items(), first_moments(mesh).values()):
+        moments[k] = (float(a.abs().max()), float((a - b).abs().max()))
+    del plain, mesh
+    torch.cuda.empty_cache()
+    dl = max(abs(a - b) for a, b in zip(plain_losses, mesh_losses))
+    print(f"{label} plain losses {' '.join(f'{x:.7f}' for x in plain_losses)}")
+    print(f"{label} mesh-1 losses {' '.join(f'{x:.7f}' for x in mesh_losses)}")
+    print(f"{label} max loss diff {dl:.3g}, max xyz diff {dx:.3g}, max {net} diff "
+          f"{dnet:.3g}; step ms plain {plain_ms:.2f} (steps "
+          f"{' '.join(f'{1e3 * x:.2f}' for x in plain_t)}), mesh-1 {mesh_ms:.2f} "
+          f"(steps {' '.join(f'{1e3 * x:.2f}' for x in mesh_t)}); device ms a step "
+          f"(profiler, {profiled} more step) plain {plain_dev:.2f}, mesh-1 "
+          f"{mesh_dev:.2f}; forward launches {fwd}, backward launches {bwd} "
+          f"for {n} steps ({smi})")
+    print(f"{label} Adam first moments (largest plain entry, largest "
+          f"difference): {json.dumps(moments)}")
+    print(f"{label} collectives a step (calls, bytes): {json.dumps(colls)}; image "
+          f"all-gather {colls.get('image_all_gather', (0, 0))[1]} bytes")
+    check(dl <= CALIB_MESH1_LOSS_TOL,
+          f"{label}: mesh-1 losses off the plain ones by {dl}")
+    net_group = ".lens_opt" if fisheye else ".cubemap_opt"
+    check(moments["xyz"][0] > 0 and moments[net_group][0] > 0,
+          f"{label}: the positions or the {net} did not train: {moments}")
+    off = {k: v for k, v in moments.items() if v[1] > MOMENT_TOL * v[0]}
+    check(not off, f"{label}: first moments off the plain trainer's: {off}")
+    check(fwd == bwd == renders * n, f"{label}: {fwd} forward and {bwd} backward "
+                                     f"launches for {n} steps")
+    images = colls.get("image_all_gather", (0, 0))[0]
+    check(images == (0 if apply2gt else renders),
+          f"{label}: {images} image all-gathers a step")
+    return ({f"mesh1_nccl_{label}": (fwd, bwd)},
+            dict(max_loss_diff=dl, max_xyz_diff=dx, max_net_diff=dnet,
+                 first_moments=moments, plain_ms=plain_ms, mesh_ms=mesh_ms, plain_device_ms=plain_dev,
+                 mesh_device_ms=mesh_dev, collectives=colls))
+
+
+def mesh1_calib_paths(pairs, device, smi):
+    """Step 17 on each (label, trainer, scene, apply2gt) of `pairs` in one
+    world of one (NCCL), then the trainers' memory freed: {path: (forward,
+    backward)}."""
+    import torch
+    import torch.distributed as dist
+    from bags_tpu_torch.dist.trainer import init_distributed
+
+    launches = {}
+    t0 = time.perf_counter()
+    _, started = init_distributed(device, 1)
+    print(f"17 world of one ({dist.get_backend()}) started in "
+          f"{time.perf_counter() - t0:.2f} s")
+    try:
+        for label, trainer, scene, apply2gt in pairs:
+            t0 = time.perf_counter()
+            launches.update(calib_mesh1_path(label, trainer, scene, smi, apply2gt)[0])
+            print(f"17 {label} took {time.perf_counter() - t0:.1f} s")
+    finally:
+        if started:
+            dist.destroy_process_group()
+    del pairs
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2781,11 +2974,18 @@ def main():
     bwd_entry["launches_by_path"]["train_cli_fisheye"] = fish_bwd
     fwd_entry["launches_by_path"]["render_cli_fisheye"] = fisheye_restore_path(
         fish_model, data)
-    fish_fwd_view, fish_bwd_view = fisheye_checks(fish_model, data, device)
+    fish_fwd_view, fish_bwd_view, fish_trainer, fish_scene = fisheye_checks(
+        fish_model, data, device)
     fwd_entry.update(fish_fwd_view)
     bwd_entry.update(fish_bwd_view)
     print(f"step 11 done at {time.perf_counter() - t_all:.1f} s")
     lap(11)
+    # 17a-b. slice 6's second part on step 11's restored fisheye trainer
+    mesh_calib = mesh1_calib_paths(
+        [("fisheye", fish_trainer, fish_scene, None),
+         ("fisheye_apply2gt", fish_trainer, fish_scene, True)], device, smi)
+    del fish_trainer, fish_scene
+    lap("17ab")
 
     # 12. slice 4's cubemap path at full width
     t0 = time.perf_counter()
@@ -2797,11 +2997,20 @@ def main():
     bwd_entry["launches_by_path"]["train_cli_cubemap"] = cube_bwd
     fwd_entry["launches_by_path"]["render_cli_cubemap"] = cubemap_restore_path(
         cube_model, cube_data)
-    cube_fwd_faces, cube_bwd_faces = cubemap_checks(cube_model, cube_data, device)
+    cube_fwd_faces, cube_bwd_faces, cube_trainer, cube_scene = cubemap_checks(
+        cube_model, cube_data, device)
     fwd_entry.update(cube_fwd_faces)
     bwd_entry.update(cube_bwd_faces)
     print(f"step 12 took {time.perf_counter() - t0:.1f} s")
     lap(12)
+    # 17c. slice 6's second part on step 12's restored cubemap trainer
+    mesh_calib.update(mesh1_calib_paths(
+        [("cubemap", cube_trainer, cube_scene, None)], device, smi))
+    del cube_trainer, cube_scene
+    lap("17c")
+    for name, (fwd, bwd) in mesh_calib.items():
+        fwd_entry["launches_by_path"][name] = fwd
+        bwd_entry["launches_by_path"][name] = bwd
 
     # 13. known-lens recovery
     t0 = time.perf_counter()
@@ -2877,7 +3086,8 @@ def main():
         bwd_entry["launches_by_path"][name] = bwd
     lap(16)
 
-    # 17. the kernels line, then the device line
+    # 18. the kernels line, then the device line
+    step_s["17"] = round(step_s["17ab"] + step_s["17c"], 1)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("step seconds " + json.dumps(step_s))
     shutil.rmtree(WORK, ignore_errors=True)

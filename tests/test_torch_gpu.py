@@ -456,6 +456,43 @@ def test_mesh1_nccl_matches_plain_trainer(cuda):
     assert not dist.is_initialized()
 
 
+def test_mesh1_fisheye_step_on_card_matches_plain(cuda):
+    """The toy fisheye step (`utils/testing.fisheye_toy`) tile-parallel in
+    an NCCL world of one (`dist/calib.sharded_fisheye_step`: the slab
+    render, the image all-gather, the warp and crop rows, the halo loss,
+    the all-reduces) against `fisheye_train_step` on the card from the same
+    state and GT: one launch of each kernel, the loss within 1e-5
+    relative, every gradient within atol 1e-5, rtol 1e-3."""
+    import torch.distributed as dist
+
+    from bags_tpu_torch.dist.calib import fisheye_gt_rows, sharded_fisheye_step
+    from bags_tpu_torch.dist.trainer import init_distributed
+    from bags_tpu_torch.train.calibrated import fisheye_train_step
+    from bags_tpu_torch.utils.testing import fisheye_toy
+
+    bg, rcfg = torch.zeros(3, device=cuda), RenderConfig(sh_degree=3)
+    t = fisheye_toy(cuda)
+    plain = fisheye_train_step(t["state"], t["gt"], t["p_view"], 0, bg, t["setup"],
+                               rcfg, t["cfg"], t["schedules"], True, True)
+    _, started = init_distributed(cuda, 1)
+    try:
+        t = fisheye_toy(cuda, t["gt"])
+        before = composite.fwd_launches, composite.bwd_launches
+        mesh = sharded_fisheye_step(t["state"], fisheye_gt_rows(t["gt"], False),
+                                    t["p_view"], 0, bg, t["setup"], rcfg, t["cfg"],
+                                    t["schedules"], True, True)
+        after = composite.fwd_launches, composite.bwd_launches
+    finally:
+        if started:
+            dist.destroy_process_group()
+    assert after == (before[0] + 1, before[1] + 1)
+    assert abs(float(mesh.loss) - float(plain.loss)) <= 1e-5 * float(plain.loss)
+    assert set(mesh.grads) == set(plain.grads)
+    for k, v in plain.grads.items():
+        torch.testing.assert_close(mesh.grads[k].detach(), v.detach(), atol=1e-5,
+                                   rtol=1e-3, msg=k)
+
+
 def test_relocation_on_card_matches_cpu(cuda):
     """`relocate_dead`, `add_new_gaussians` and `position_noise` on
     `utils/testing.mcmc_toy` with the same injected draws on the card and

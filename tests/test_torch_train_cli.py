@@ -278,12 +278,35 @@ def test_train_cli_mesh_1_trains_as_one_device(tmp_path, dataset):
     np.testing.assert_allclose(a["v2|.g.xyz"], b["v2|.g.xyz"], atol=1e-5)
 
 
-@pytest.mark.parametrize("preset", ["fisheye", "cubemap"])
-def test_train_cli_refuses_mesh_with_calibrated_modes(tmp_path, dataset, preset):
-    """--mesh with the fisheye or cubemap mode is the next slice (#14c)."""
-    with pytest.raises(NotImplementedError, match="#14c"):
-        train_cli.main(["-s", dataset, "-m", str(tmp_path / "m"), "--device", "cpu",
-                        "--preset", preset, "--mesh", "1"])
+@pytest.mark.parametrize("preset", ["fisheye", "fisheye_apply2gt", "cubemap"])
+def test_train_cli_mesh_1_calibrated_modes(tmp_path, dataset, preset):
+    """--mesh 1 with the fisheye mode, its --apply2gt and the cubemap mode
+    (`ShardedCalibTrainer` in a gloo world of one) trains as the
+    single-device CLI does: the same losses over 2 iterations (rtol 1e-5),
+    the evaluation through the gathered population, the checkpoint's
+    leaves; the render CLI restores that checkpoint on one device."""
+    import torch.distributed as dist
+
+    flags = ["--preset", preset, "--no_init_iresnet", "--iterations", "2",
+             "--test_iterations", "2", "--save_iterations", "2",
+             "--checkpoint_iterations", "2"]
+    plain = _train_cli(str(tmp_path / "plain"), dataset, *flags)
+    mesh = _train_cli(str(tmp_path / "mesh1"), dataset, *flags, "--mesh", "1")
+    assert not dist.is_initialized()
+    assert len(plain["losses"]) == 2 and np.isfinite(plain["losses"]).all()
+    np.testing.assert_allclose(mesh["losses"], plain["losses"], rtol=1e-5)
+    assert mesh["eval"] and len(mesh["eval"]) == len(plain["eval"])
+    a = np.load(tmp_path / "mesh1" / "chkpnt2.npz")
+    b = np.load(tmp_path / "plain" / "chkpnt2.npz")
+    assert sorted(a.files) == sorted(b.files)
+    net = "cubemap_net" if preset == "cubemap" else "lens"
+    np.testing.assert_allclose(a[f"v2|.{net}.weights[0][0]"],
+                               b[f"v2|.{net}.weights[0][0]"], atol=1e-7)
+    # the render CLI restores the mesh run's checkpoint on one device
+    out = render_cli.main(["-m", str(tmp_path / "mesh1"), "-s", dataset,
+                           "--device", "cpu"])
+    assert out and all(np.isfinite(v["psnr"]).all() and v["psnr"]
+                       for v in out.values())
 
 
 def test_train_cli_without_device_needs_a_card(tmp_path, dataset, monkeypatch):
