@@ -5,7 +5,9 @@
     K^-1 (`make_control_grid`);
   * analytic targets from COLMAP OPENCV_FISHEYE / radial coefficients
     (`distort_by_coeff`, `read_colmap_coeff`) and the iResNet pre-fit to
-    them (`fit_iresnet_to_targets`, `init_iresnet_from_colmap`);
+    them (`fit_iresnet_to_targets`, `init_iresnet_from_colmap`; on the
+    card each Adam step of the pre-fit is one CUDA graph launch,
+    `GraphedFit`);
   * `compute_flow`: the lens net on the sparse control grid, scaled by the
     projection diagonal into NDC, upsampled bilinearly to full resolution;
   * `apply_distortion`: the rendered perspective image warped into the
@@ -163,22 +165,99 @@ def read_colmap_coeff(source_path: str) -> list:
     return [0.0, 0.0, 0.0, 0.0]
 
 
+def prefit_loss(params: IResNetParams, inputs: torch.Tensor,
+                targets: torch.Tensor) -> torch.Tensor:
+    """The pre-fit's objective: the mean squared error of forward(inputs)
+    against targets, non-finite predictions counted as 0."""
+    pred = iresnet_forward(params, inputs, sensor_to_frustum=True)
+    pred = torch.where(torch.isfinite(pred), pred, torch.zeros_like(pred))
+    return torch.mean((pred - targets) ** 2)
+
+
+def _prefit_adam(leaves, lr: float, capturable: bool = False):
+    # plain Adam at optax.adam's defaults
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
+
+
+def fit_eager(params: IResNetParams, inputs: torch.Tensor,
+              targets: torch.Tensor, iters: int, lr: float) -> IResNetParams:
+    """`iters` eager Adam steps of `prefit_loss`, in place: the pre-fit on
+    the CPU, and on the card the reference the graphed fit is held
+    against."""
+    opt = _prefit_adam(params.parameters(), lr)
+    for _ in range(iters):
+        opt.zero_grad()
+        prefit_loss(params, inputs, targets).backward()
+        opt.step()
+    return params
+
+
+class GraphedFit:
+    """The pre-fit's Adam step on the card as one CUDA graph.
+
+    An eager step of the 5x512 lens net launches about a thousand small
+    kernels (25 spectral normalisations of 5 power iterations, the MLP and
+    its backward, Adam over 50 leaves), so the eager loop waits on the
+    host. Here `warmup` eager steps (at least one: the capturable Adam's
+    moments must exist before the capture) run on a side stream, then one
+    step is captured; `replay(n)` takes n more steps, each one graph
+    launch. The inputs, targets, gradients and Adam state are the graph's
+    static tensors. A capture that fails raises. `close()` frees the graph
+    and the gradients."""
+
+    def __init__(self, params: IResNetParams, inputs: torch.Tensor,
+                 targets: torch.Tensor, lr: float, warmup: int = 3):
+        if inputs.device.type != "cuda" or warmup < 1:
+            raise ValueError("the graphed pre-fit needs CUDA tensors and at "
+                             f"least one warm-up step (got {inputs.device}, "
+                             f"warmup={warmup})")
+        self.leaves = params.parameters()
+        self.opt = _prefit_adam(self.leaves, lr, capturable=True)
+        side = torch.cuda.Stream(inputs.device)
+        side.wait_stream(torch.cuda.current_stream(inputs.device))
+        with torch.cuda.stream(side):
+            for _ in range(warmup):
+                self.opt.zero_grad()
+                prefit_loss(params, inputs, targets).backward()
+                self.opt.step()
+        torch.cuda.current_stream(inputs.device).wait_stream(side)
+        self.steps = warmup
+        # gradients unset, so that the captured backward allocates them in
+        # the graph's pool and every replay writes them anew
+        self.opt.zero_grad(set_to_none=True)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            prefit_loss(params, inputs, targets).backward()
+            self.opt.step()
+
+    def replay(self, n: int) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        self.steps += n
+
+    def close(self) -> None:
+        for t in self.leaves:
+            t.grad = None
+        self.graph = None
+
+
 def fit_iresnet_to_targets(params: IResNetParams, inputs: torch.Tensor,
                            targets: torch.Tensor, iters: int = 5000,
                            lr: float = 1e-4) -> IResNetParams:
     """Pre-fit the lens net in place so that forward(inputs) ~= targets:
     `iters` steps of plain Adam (lr, eps 1e-8: optax.adam's defaults) on
-    the mean squared error, non-finite predictions counted as 0."""
-    leaves = params.parameters()
-    dtype = leaves[0].dtype
+    `prefit_loss`. On the CPU the eager loop (`fit_eager`); on the card
+    the step is captured once and replayed (`GraphedFit`)."""
+    dtype = params.parameters()[0].dtype
     inputs, targets = inputs.to(dtype), targets.to(dtype)
-    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    for _ in range(iters):
-        opt.zero_grad()
-        pred = iresnet_forward(params, inputs, sensor_to_frustum=True)
-        pred = torch.where(torch.isfinite(pred), pred, torch.zeros_like(pred))
-        torch.mean((pred - targets) ** 2).backward()
-        opt.step()
+    if inputs.device.type == "cpu":
+        return fit_eager(params, inputs, targets, iters, lr)
+    if iters < 1:
+        return params
+    fit = GraphedFit(params, inputs, targets, lr, warmup=min(iters, 3))
+    fit.replay(iters - fit.steps)
+    fit.close()
     return params
 
 

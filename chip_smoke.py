@@ -99,7 +99,12 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      against the known lens after steps 1 and 30, the render's instances
      and the kernels' times and bounds on it, one step split by stage
      (`tools/stagebench.fisheye_step_stages`, with a profiler trace), the
-     step's ms, the peak memory, and a trace of ten pre-fit steps;
+     step's ms and the peak memory. Then the pre-fit on the card (one CUDA
+     graph a step, `calib/distortion.GraphedFit`) against the eager loop,
+     200 Adam steps of the full-width lens net each from one state: the
+     final losses within 1e-5 relative, every parameter within 1e-4 of the
+     largest entry, the ms a step of each; and a trace of ten replayed
+     pre-fit steps;
  12. the cubemap path (slice 4) at full width. First a toy cubemap step
      (five renders sorted by distance, the cubemap net's ray field, five
      warps) through both kernels on the card against the same step on the
@@ -212,11 +217,24 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      5 and 5 a cubemap step) and its collectives a step by kind from
      `dist/mesh.py`'s counters (the image all-gather in (a) and (c),
      none in (b)); its seconds in `step seconds` ("17ab", "17c", "17");
- 18. prints the kernels line (JSON: the forward, the backward, the
+ 18. the scale run: the port's `tools/scale_train.py` in-process at its
+     defaults (a 1M-Gaussian GT scene rendered from 8 yawed cameras at
+     1600x1080, a sparse init of 200,000 of its points in 2,097,152 slots,
+     SH 3, 99 warm-up iterations, the calibrated densify threshold, then
+     densify every 100 iterations until four 50-iteration windows are timed
+     past 1,000,000 live). Checks: its printed JSON line parses to what it
+     returns, with the JAX tool's keys but the TPU's three; the target
+     reached, the live count within the capacity; a finite positive
+     threshold; a finite median step at the target; the last log's loss
+     below the first's; one forward and one backward launch an iteration
+     plus a forward launch for each of the 8 GT views. Prints the run's
+     seconds and peak memory beside the card, the ms an iteration at each
+     50-iteration log and the densify rounds;
+ 19. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
      every variant's under "variants"; the forward's and the backward's
      launches by path, fisheye, cubemap, recovery, slice 5 and slice 6 paths
-     included, and their numbers on the extended-FoV render and the
+     and the scale run included, and their numbers on the extended-FoV render and the
      cubemap faces) and, last, the device line (JSON).
 Any failed check raises, and the run exits non-zero with no device line.
 Work files go to `build/chip_smoke/` and are removed at the end.
@@ -1444,24 +1462,73 @@ def fisheye_restore_path(model, data):
     return fwd
 
 
-def prefit_trace(trainer, device):
-    """Ten steps of the lens pre-fit (a full-width lens net on the 3,200
-    points of the dataset's COLMAP coefficients) under the profiler: the
-    device's busy share and the kernels by time (step 11)."""
+# The graphed pre-fit against the eager loop (step 11): Adam steps of each
+# from one initial state.
+PREFIT_CHECK_STEPS = 200
+
+
+def prefit_points(trainer, device):
+    """The lens pre-fit's inputs and targets on the card: the 3,200 control
+    points of the dataset's COLMAP coefficients at the trainer's focal
+    lengths and fisheye size."""
     import numpy as np
     from bags_tpu_torch.calib import distortion
-    from bags_tpu_torch.calib.iresnet import init_iresnet_params
-    from bags_tpu_torch.tools.stagebench import print_busy, trace_calls
 
     fx, fy = trainer.focal
     fh, fw = trainer.setup.fish_hw
     K = np.array([[fx, 0, fw / 2], [0, fy, fh / 2], [0, 0, 1.0]])
-    inputs, targets = distortion.colmap_fit_points(K, fw, fh, FISH_INIT_COEFF,
-                                                   device)
-    lens = init_iresnet_params(device=device)
-    summary = trace_calls(lambda: distortion.fit_iresnet_to_targets(
-        lens, inputs, targets, iters=10), os.path.join(WORK, "prefit_trace"))
-    print_busy("lens pre-fit, 10 Adam steps", summary)
+    return distortion.colmap_fit_points(K, fw, fh, FISH_INIT_COEFF, device)
+
+
+def prefit_graph_check(inputs, targets, device):
+    """The full-width lens net fitted by the eager loop (`fit_eager`, the
+    CPU's) and by the graphed fit (`fit_iresnet_to_targets` on the card)
+    for PREFIT_CHECK_STEPS Adam steps each from one initial state: the
+    final losses within 1e-5 relative, every net parameter within 1e-4 of
+    the largest entry (step 11). Returns the seconds a step of each."""
+    import torch
+    from bags_tpu_torch.calib import distortion
+    from bags_tpu_torch.calib.iresnet import init_iresnet_params
+
+    nets, secs = {}, {}
+    for mode, fit in (("eager", distortion.fit_eager),
+                      ("graphed", distortion.fit_iresnet_to_targets)):
+        nets[mode] = init_iresnet_params(device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(nets[mode], inputs, targets, PREFIT_CHECK_STEPS, 1e-4)
+        torch.cuda.synchronize()
+        secs[mode] = (time.perf_counter() - t0) / PREFIT_CHECK_STEPS
+    with torch.no_grad():
+        loss = {m: float(distortion.prefit_loss(n, inputs, targets))
+                for m, n in nets.items()}
+        pairs = list(zip(nets["eager"].parameters(), nets["graphed"].parameters()))
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        largest = max(float(a.abs().max()) for a, _ in pairs)
+    rel = abs(loss["graphed"] - loss["eager"]) / abs(loss["eager"])
+    print(f"lens pre-fit, {PREFIT_CHECK_STEPS} Adam steps from one state: eager "
+          f"{1e3 * secs['eager']:.3f} ms a step, graphed "
+          f"{1e3 * secs['graphed']:.3f} ms a step (capture included); loss "
+          f"{loss['eager']:.6e} / {loss['graphed']:.6e} (relative {rel:.2e}), "
+          f"largest parameter difference {diff:.3e} of {largest:.3e}")
+    check(rel <= 1e-5, f"graphed pre-fit loss off the eager one by {rel:.2e}")
+    check(diff <= 1e-4 * largest,
+          f"graphed pre-fit parameters off the eager ones by {diff:.3e}")
+    return secs
+
+
+def prefit_trace(inputs, targets, device):
+    """Ten replayed steps of the graphed lens pre-fit under the profiler:
+    the device's busy share and the kernels by time (step 11)."""
+    from bags_tpu_torch.calib import distortion
+    from bags_tpu_torch.calib.iresnet import init_iresnet_params
+    from bags_tpu_torch.tools.stagebench import print_busy, trace_calls
+
+    fit = distortion.GraphedFit(init_iresnet_params(device=device), inputs,
+                                targets, 1e-4)
+    summary = trace_calls(lambda: fit.replay(10), os.path.join(WORK, "prefit_trace"))
+    fit.close()
+    print_busy("lens pre-fit, 10 graphed Adam steps", summary)
 
 
 def fisheye_checks(model, data, device):
@@ -1540,7 +1607,9 @@ def fisheye_checks(model, data, device):
           f"{bb[0]:.4f} {bb[1]})")
     stagebench.fisheye_step_stages(trainer, fish_gt, device,
                                    os.path.join(WORK, "fish_trace"))
-    prefit_trace(trainer, device)
+    inputs, targets = prefit_points(trainer, device)
+    prefit_graph_check(inputs, targets, device)
+    prefit_trace(inputs, targets, device)
 
     def numbers(ms, plain_ms, bnd, err):
         return {"fisheye_view0_ms": ms, "fisheye_view0_plain_ms": plain_ms,
@@ -2091,18 +2160,22 @@ def hybrid_stage_split(trainer, scene, device):
          "launches": tr["launches"]}))
 
 
-def jax_recovery_keys():
-    """The keys of the JAX package's `tools/lens_recovery.py` JSON line, read
-    from its source without importing it."""
+def jax_json_keys(tool):
+    """The keys of the JSON line of the JAX package's `tools/<tool>.py` (a
+    `dict(metric=...)` call or a `{"metric": ...}` literal), read from its
+    source without importing it."""
     import ast
 
-    with open(os.path.join(REPO, "tools", "lens_recovery.py")) as f:
+    with open(os.path.join(REPO, "tools", f"{tool}.py")) as f:
         tree = ast.parse(f.read())
     for node in ast.walk(tree):
         if isinstance(node, ast.Call) and getattr(node.func, "id", "") == "dict" \
                 and any(k.arg == "metric" for k in node.keywords):
             return [k.arg for k in node.keywords]
-    raise RuntimeError("tools/lens_recovery.py: no JSON dict found")
+        if isinstance(node, ast.Dict) and any(
+                getattr(k, "value", None) == "metric" for k in node.keys):
+            return [k.value for k in node.keys]
+    raise RuntimeError(f"tools/{tool}.py: no JSON dict found")
 
 
 def recovery_path():
@@ -2129,13 +2202,91 @@ def recovery_path():
     print(f"lens recovery: {secs:.1f} s ({out['s_per_iter']} s an iteration), "
           f"flow error {out['flow_err_init_px']} -> {out['flow_err_final_px']} px, "
           f"forward launches {fwd}, backward launches {bwd}")
-    check(list(out) == jax_recovery_keys(), f"recovery keys {list(out)}")
+    check(list(out) == jax_json_keys("lens_recovery"), f"recovery keys {list(out)}")
     numbers = [v for v in out.values() if isinstance(v, (int, float))]
     check(all(math.isfinite(v) for v in numbers), f"non-finite recovery: {out}")
     check(bwd == 500, f"{bwd} backward launches for 500 recovery steps")
     check(out["flow_err_final_px"] < out["flow_err_init_px"],
           f"the flow error did not fall: {out['flow_err_init_px']} -> "
           f"{out['flow_err_final_px']} px")
+    return fwd, bwd
+
+
+# Step 18: the scale run at the tool's defaults. The JAX tool's keys that
+# report the TPU's sort key and its re-jits have no counterpart here.
+SCALE_TPU_KEYS = ("sort_path", "capacity_ladder", "recompiles_from_growth")
+SCALE_CAPACITY, SCALE_TARGET, SCALE_GT_VIEWS = 2 ** 21, 1_000_000, 8
+
+
+class _Tee:
+    """A stdout that also keeps what was written (step 18 parses the tool's
+    printed JSON line)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def scale_path(smi):
+    """The scale run (step 18): the port's `tools/scale_train.py`
+    in-process at its defaults (1600x1080, 200,000 -> 1,000,000 live
+    Gaussians in 2,097,152 slots, 8 cameras, SH 3, no holdout). Checks that
+    its printed JSON line parses to what it returns, with the JAX tool's
+    keys but the TPU ones; the target reached with the live count within
+    the capacity; a finite positive calibrated threshold; a finite median
+    step at the target; the loss of the last log below the first's; one
+    forward and one backward launch an iteration and a forward launch for
+    each GT view. Prints the run's seconds and peak memory beside the
+    card. Returns the forward and backward launches."""
+    import contextlib
+    import math
+
+    import torch
+    from bags_tpu_torch.raster import composite
+    from bags_tpu_torch.tools import scale_train
+
+    composite.fwd_launches = composite.bwd_launches = 0
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        out = scale_train.main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    printed = [ln for ln in "".join(tee.parts).splitlines() if ln.startswith("{")]
+    check(printed and json.loads(printed[-1]) == json.loads(json.dumps(out)),
+          "the scale tool's JSON line does not parse to its result")
+    want = [k for k in jax_json_keys("scale_train") if k not in SCALE_TPU_KEYS]
+    check(all(k in out for k in want),
+          f"scale keys: missing {[k for k in want if k not in out]}")
+    log, iters = out["log"], out["iters_run"]
+    print(f"scale run: {secs:.1f} s ({smi}), {iters} iterations, live "
+          f"{out['alive_final']} of {out['capacity']}, threshold "
+          f"{out['densify_grad_threshold']:.4e} (from {out['calibrated_from']} "
+          f"seen), median step at the target {out['median_step_s_at_target']} s, "
+          f"peak memory {out['hbm_bytes_peak'] / 2**30:.2f} GiB, seconds "
+          f"{out['seconds']}, forward launches {fwd}, backward launches {bwd}")
+    print("scale run ms an iteration by log (it, live, ms): " + " ".join(
+        f"{it}:{n}:{ms:.2f}" for it, _, n, _, ms in log))
+    print(f"scale run densify (it, cloned, split, pruned, live before, after): "
+          f"{out['densify_log']}")
+    thr, med = out["densify_grad_threshold"], out["median_step_s_at_target"]
+    check(out["reached_target"] and
+          SCALE_TARGET <= out["alive_final"] <= SCALE_CAPACITY,
+          f"scale run: live {out['alive_final']}")
+    check(math.isfinite(thr) and thr > 0, f"calibrated threshold {thr}")
+    check(med is not None and math.isfinite(med), f"median step {med}")
+    check(log and log[-1][1] < log[0][1],
+          f"scale loss did not fall: {log[0][1]} -> {log[-1][1]}")
+    check(bwd == iters and fwd == iters + SCALE_GT_VIEWS,
+          f"{fwd} forward and {bwd} backward launches for {iters} iterations "
+          f"and {SCALE_GT_VIEWS} GT views")
     return fwd, bwd
 
 
@@ -3086,7 +3237,13 @@ def main():
         bwd_entry["launches_by_path"][name] = bwd
     lap(16)
 
-    # 18. the kernels line, then the device line
+    # 18. the scale run: 200,000 -> 1,000,000 live Gaussians at full width
+    fwd, bwd = scale_path(smi)
+    fwd_entry["launches_by_path"]["scale_train"] = fwd
+    bwd_entry["launches_by_path"]["scale_train"] = bwd
+    lap(18)
+
+    # 19. the kernels line, then the device line
     step_s["17"] = round(step_s["17ab"] + step_s["17c"], 1)
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("step seconds " + json.dumps(step_s))

@@ -167,6 +167,44 @@ def test_init_from_colmap_f64_20_iterations(random_net):
     assert moved > 1e-4
 
 
+def _eager_fit_before_graphs(params, inputs, targets, iters, lr):
+    """`fit_iresnet_to_targets` as it was before the card's pre-fit became
+    a CUDA graph (its body verbatim): the CPU's pre-fit stays this."""
+    leaves = params.parameters()
+    dtype = leaves[0].dtype
+    inputs, targets = inputs.to(dtype), targets.to(dtype)
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    for _ in range(iters):
+        opt.zero_grad()
+        pred = tres.iresnet_forward(params, inputs, sensor_to_frustum=True)
+        pred = torch.where(torch.isfinite(pred), pred, torch.zeros_like(pred))
+        torch.mean((pred - targets) ** 2).backward()
+        opt.step()
+    return params
+
+
+def test_prefit_on_the_cpu_is_the_eager_loop():
+    """On the CPU the pre-fit is the eager loop, unchanged: 20 Adam steps
+    from one net give the same loss and weights, bit for bit, as the loop
+    before the graphed fit; the graphed fit refuses CPU tensors."""
+    K = np.array([[40.0, 0, 24], [0, 38.0, 20], [0, 0, 1]])
+    inputs, targets = tdist.colmap_fit_points(K, 48, 40, [-0.04, 0.01, 0.0, 0.0],
+                                              "cpu")
+    fitted = [tres.init_iresnet_params(hidden=16, n_blocks=2, n_layers=2, seed=5)
+              for _ in range(2)]
+    tdist.fit_iresnet_to_targets(fitted[0], inputs, targets, iters=20, lr=1e-3)
+    _eager_fit_before_graphs(fitted[1], inputs, targets, 20, 1e-3)
+    with torch.no_grad():
+        loss = [tdist.prefit_loss(n, inputs, targets) for n in fitted]
+    assert torch.equal(loss[0], loss[1])
+    for a, b in zip(fitted[0].parameters(), fitted[1].parameters()):
+        assert torch.equal(a, b)
+    start = tres.init_iresnet_params(hidden=16, n_blocks=2, n_layers=2, seed=5)
+    assert not torch.equal(start.weights[0][0], fitted[0].weights[0][0])
+    with pytest.raises(ValueError):
+        tdist.GraphedFit(start, inputs, targets, 1e-3)
+
+
 # --------------------------------------------------------------------------
 # distortion pipeline, vignetting
 # --------------------------------------------------------------------------
