@@ -19,12 +19,13 @@ exactly 0 on a side face) give the JAX package's NaN.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Optional
+from typing import Callable, List
 
 import numpy as np
 import torch
 
 from ..utils.image import grid_sample, resize_bilinear
+from ..utils.spans import span
 from .iresnet import IResNetParams, iresnet_forward
 
 
@@ -166,24 +167,20 @@ FACES = ("forward", "up", "down", "left", "right")
 def render_cubemap_faces(render_face: Callable[[int], torch.Tensor],
                          cubemap_net: IResNetParams, K, width: int,
                          height: int, control_point_sample_scale: int,
-                         mask_fov90: torch.Tensor,
-                         timer: Optional[Callable[[str], None]] = None):
-    """Warp the five faces. render_face(i) returns the (3, H, W) render of
-    face i in FACES order (0 the main camera, 1-4 the sub-cameras). Returns
-    (faces, 0): the warped images, the side faces half-masked, and the
-    JAX package's banded-warp overflow, always 0 here. timer(name), if
-    given, is called after the ray field ("ray_field") and after the five
-    warps ("warps")."""
-    tick = timer or (lambda name: None)
-    rays_hom = distorted_rays(cubemap_net, K, width, height,
-                              control_point_sample_scale)
-    tick("ray_field")
-    out: List[torch.Tensor] = []
-    for i, face in enumerate(FACES):
-        warped = warp_to_face(K, rays_hom, render_face(i) * mask_fov90, face,
-                              height, width)
-        out.append(warped if face == "forward" else mask_half(warped, face))
-    tick("warps")
+                         mask_fov90: torch.Tensor):
+    """Warp the five faces, under the span "lens". render_face(i) returns
+    the (3, H, W) render of face i in FACES order (0 the main camera, 1-4
+    the sub-cameras). Returns (faces, 0): the warped images, the side faces
+    half-masked, and the JAX package's banded-warp overflow, always 0
+    here."""
+    with span("lens"):
+        rays_hom = distorted_rays(cubemap_net, K, width, height,
+                                  control_point_sample_scale)
+        out: List[torch.Tensor] = []
+        for i, face in enumerate(FACES):
+            warped = warp_to_face(K, rays_hom, render_face(i) * mask_fov90,
+                                  face, height, width)
+            out.append(warped if face == "forward" else mask_half(warped, face))
     return out, 0
 
 

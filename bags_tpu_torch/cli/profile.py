@@ -25,13 +25,12 @@ time the device directly.
 
 `--trace DIR` writes `DIR/trace.json`, a `torch.profiler` Chrome trace of
 one fwd+bwd step after one step of profiler warm-up (CPU activity, and CUDA
-on the card): `tools/stagebench.py::fwd_bwd_step`, the timed step with
-each stage under a `record_function` label "step/projection", ...; it
-prints from it
-(`summarize_trace`) each stage's host time, the kernels it launched, their
-device time and its host-device copies, and the device's busy share of the
-traced step. The profiler's own cost inflates the host times; the device
-times are the kernels' own.
+on the card): the timed step itself, whose stages are the program's spans
+("bags.render", "bags.projection", ..., `utils/spans.py`); it prints from
+it (`summarize_trace`) each span's host time, the kernels launched while it
+was open, their device time and its host-device copies, and the device's
+busy share of the traced step. The profiler's own cost inflates the host
+times; the device times are the kernels' own.
 """
 
 from __future__ import annotations
@@ -45,11 +44,12 @@ import torch
 from ..core.projection import project_gaussians
 from ..raster import binning
 from ..raster.render import RenderConfig, render
-from ..tools.stagebench import ARGS, fwd_bwd_step, render_step
+from ..tools.stagebench import ARGS, render_step
 from ..utils.device import resolve_device
 from ..utils.profiling import (PEAK_BYTES_PER_S, bound, bwd_bytes, bwd_ops,
                                fwd_bytes, fwd_ops, pair_counts, timed,
                                toy_workload)
+from ..utils.spans import PREFIX
 
 REPS = 10
 STEP_BYTES_PER_INSTANCE = 4 * (10 + 10 + 20 + 10) + 2 * 8
@@ -77,11 +77,12 @@ def kernel_name(name):
 
 
 def summarize_trace(path):
-    """Read a Chrome trace of `fwd_bwd_step`: per `step/<stage>` label its
-    host ms, the kernels launched inside it, their device ms and its
-    host-device copies; device ms per kernel name; the kernel launches, the
-    device-busy ms and the ms from the first kernel's start to the last
-    one's end."""
+    """Read a Chrome trace of the program: per span ("bags.<name>") its
+    host ms, the kernels launched on any thread while it was open (the
+    backward's run on the autograd engine's thread on the card), their
+    device ms and its host-device copies, summed over the spans of a name;
+    device ms per kernel name; the kernel launches, the device-busy ms and
+    the ms from the first kernel's start to the last one's end."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -91,14 +92,16 @@ def summarize_trace(path):
         by_corr.setdefault(k["args"].get("correlation"), []).append(k)
     stages = {}
     for e in sorted(events, key=lambda e: e.get("ts", 0)):
-        if e.get("cat") == "user_annotation" and e["name"].startswith("step/"):
+        if e.get("cat") == "user_annotation" and e["name"].startswith(PREFIX):
             a, b = e["ts"], e["ts"] + e["dur"]
             inside = [r for r in runtime if a <= r["ts"] <= b]
             ks = [k for r in inside for k in by_corr.get(r["args"].get("correlation"), [])]
-            stages[e["name"]] = {
-                "host_ms": e["dur"] / 1e3, "kernels": len(ks),
-                "device_ms": sum(k["dur"] for k in ks) / 1e3,
-                "copies": sum("Memcpy" in r["name"] for r in inside)}
+            st = stages.setdefault(e["name"], {"host_ms": 0.0, "kernels": 0,
+                                               "device_ms": 0.0, "copies": 0})
+            st["host_ms"] += e["dur"] / 1e3
+            st["kernels"] += len(ks)
+            st["device_ms"] += sum(k["dur"] for k in ks) / 1e3
+            st["copies"] += sum("Memcpy" in r["name"] for r in inside)
     by_name = {}
     for k in kernels:
         name = kernel_name(k["name"])
@@ -188,7 +191,7 @@ def main(argv=None) -> dict:
         with profile(activities=acts, schedule=schedule(wait=0, warmup=1, active=1),
                      on_trace_ready=lambda p: p.export_chrome_trace(out["trace"])) as prof:
             for _ in range(2):
-                fwd_bwd_step(sc, cfg, gt)
+                render_step(sc, cfg, gt)
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 prof.step()

@@ -20,6 +20,7 @@ import torch
 from ..calib.specular import ASG_FEATURE
 from ..core import sh as sh_lib
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 
 @dataclasses.dataclass
@@ -43,14 +44,20 @@ class Gaussians:
     def max_sh_degree(self) -> int:
         return int(np.sqrt(1 + self.sh_rest.shape[1])) - 1
 
+    # The activations are the projection's first work: each runs under the
+    # "projection" span unless another layer's span is open.
+
     def scaling(self) -> torch.Tensor:
-        return torch.exp(self.scales_log)
+        with span("projection"):
+            return torch.exp(self.scales_log)
 
     def opacity(self, alive: torch.Tensor) -> torch.Tensor:
-        return torch.sigmoid(self.opacity_raw) * alive.to(self.opacity_raw.dtype)
+        with span("projection"):
+            return torch.sigmoid(self.opacity_raw) * alive.to(self.opacity_raw.dtype)
 
     def sh_coeffs(self) -> torch.Tensor:
-        return torch.cat([self.sh_dc, self.sh_rest], dim=1)  # (C, K, 3)
+        with span("projection"):
+            return torch.cat([self.sh_dc, self.sh_rest], dim=1)  # (C, K, 3)
 
     def with_asg(self) -> "Gaussians":
         """The same Gaussians with zero ASG specular features (--hybrid)."""

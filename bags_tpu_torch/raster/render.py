@@ -19,12 +19,13 @@ densification statistics).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
 from ..core.camera import CameraParams, CameraStatic, GlobalAlignment
 from ..core.projection import Projected, distance_to_camera, project_gaussians
+from ..utils.spans import span
 from . import binning, tiles
 from .composite import composite_fwd
 
@@ -93,11 +94,11 @@ def gather_rows(table: torch.Tensor, abs_probe: Optional[torch.Tensor],
 def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor,
               max_instances: Optional[int],
               abs_probe: Optional[torch.Tensor] = None, y0: int = 0,
-              sort_key: Optional[torch.Tensor] = None,
-              tick: Callable[[str], None] = lambda name: None):
+              sort_key: Optional[torch.Tensor] = None):
     """Bin, gather and composite projected Gaussians over the tiles of a
     width x height image whose first pixel row is y0 of the view (a slab
-    of a taller view, `dist/sharded.py`), the background blended.
+    of a taller view, `dist/sharded.py`), the background blended; each
+    stage under its span ("binning", "gather", "composite").
 
     proj: its x2d / y2d as the tiles see them (a densify probe added);
     abs_probe: as in `gather_rows`; sort_key: optional per-Gaussian sort
@@ -106,20 +107,20 @@ def rasterize(proj: Projected, width: int, height: int, bg: torch.Tensor,
     tiles_x, tiles_y = tiles.tile_grid(width, height)
     if y0:
         proj = dataclasses.replace(proj, y2d=proj.y2d - float(y0))
-    bins = binning.bin_gaussians(proj.detach(), tiles_x, tiles_y,
-                                 max_instances, sort_key_depth=sort_key)
-    tick("binning")
-    rows = gather_rows(build_packet_table(proj, proj.x2d, proj.y2d),
-                       abs_probe, bins.gauss_id)
-    tick("gather")
-    color4, t_final = composite_fwd(rows, bins.tile_start, bins.tile_count,
-                                    tiles_x, tiles_y)
-    tick("composite_fwd")
-    out = color4.transpose(1, 2)                                 # (T, NPIX, 4)
-    color = out[..., :3] + t_final[..., None] * bg[None, None, :]
-    img = tiles.tiles_to_image(color, tiles_x, tiles_y, width, height)
-    aux = tiles.tiles_to_image(torch.stack([t_final, out[..., 3]], dim=-1),
-                               tiles_x, tiles_y, width, height)
+    with span("binning"):
+        bins = binning.bin_gaussians(proj.detach(), tiles_x, tiles_y,
+                                     max_instances, sort_key_depth=sort_key)
+    with span("gather"):
+        rows = gather_rows(build_packet_table(proj, proj.x2d, proj.y2d),
+                           abs_probe, bins.gauss_id)
+    with span("composite"):
+        color4, t_final = composite_fwd(rows, bins.tile_start,
+                                        bins.tile_count, tiles_x, tiles_y)
+        out = color4.transpose(1, 2)                             # (T, NPIX, 4)
+        color = out[..., :3] + t_final[..., None] * bg[None, None, :]
+        img = tiles.tiles_to_image(color, tiles_x, tiles_y, width, height)
+        aux = tiles.tiles_to_image(torch.stack([t_final, out[..., 3]], dim=-1),
+                                   tiles_x, tiles_y, width, height)
     return img, aux, bins
 
 
@@ -138,42 +139,41 @@ def render(
     abs_probe: Optional[torch.Tensor] = None,
     extra_color: Optional[torch.Tensor] = None,
     shift_factors: Optional[torch.Tensor] = None,
-    timer: Optional[Callable[[str], None]] = None,
 ) -> RenderOutput:
-    """Render one camera view on the device of `xyz`.
+    """Render one camera view on the device of `xyz`, under the span
+    "render": "projection" (the projection, the probe and the sort key),
+    then `rasterize`'s.
 
     probe2d: optional (N, 2) zeros added to the projected means; its
     gradient is the per-Gaussian signed screen-space gradient sum.
     abs_probe: optional (N, 2) zeros; its gradient is the per-Gaussian sum
     of per-instance |screen gradients|.
     shift_factors: optional (3,) entrance-pupil shift (`project_gaussians`).
-    timer: optional callable, called with "projection", "binning",
-    "gather" and "composite_fwd" after each of those stages (a stage
-    split; the caller synchronises).
     """
-    tick = timer or (lambda name: None)
-    if bg is None:
-        bg = xyz.new_zeros(3)
-    proj = project_gaussians(
-        xyz, scales, quats, opacity, sh_coeffs, cam, static, cfg.sh_degree,
-        align=align, extra_color=extra_color, shift_factors=shift_factors)
-    tick("projection")
-
-    seen = proj if probe2d is None else dataclasses.replace(
-        proj, x2d=proj.x2d + probe2d[:, 0], y2d=proj.y2d + probe2d[:, 1])
-    sort_key = (distance_to_camera(xyz, cam, align).detach()
-                if cfg.sort_by_distance else None)
-    img, aux, bins = rasterize(seen, static.width, static.height, bg,
-                               cfg.max_instances, abs_probe,
-                               sort_key=sort_key, tick=tick)
-    return RenderOutput(
-        render=img,
-        t_final=aux[0],
-        depth_map=aux[1],
-        radii=proj.radius,
-        visibility=proj.radius > 0,
-        depth=proj.depth,
-        mean2d=proj.mean2d,
-        n_dropped=bins.n_dropped,
-        gauss_id=bins.gauss_id,
-    )
+    with span("render"):
+        if bg is None:
+            bg = xyz.new_zeros(3)
+        with span("projection"):
+            proj = project_gaussians(
+                xyz, scales, quats, opacity, sh_coeffs, cam, static,
+                cfg.sh_degree, align=align, extra_color=extra_color,
+                shift_factors=shift_factors)
+            seen = proj if probe2d is None else dataclasses.replace(
+                proj, x2d=proj.x2d + probe2d[:, 0], y2d=proj.y2d + probe2d[:, 1])
+            sort_key = (distance_to_camera(xyz, cam, align).detach()
+                        if cfg.sort_by_distance else None)
+            visibility = proj.radius > 0
+        img, aux, bins = rasterize(seen, static.width, static.height, bg,
+                                   cfg.max_instances, abs_probe,
+                                   sort_key=sort_key)
+        return RenderOutput(
+            render=img,
+            t_final=aux[0],
+            depth_map=aux[1],
+            radii=proj.radius,
+            visibility=visibility,
+            depth=proj.depth,
+            mean2d=proj.mean2d,
+            n_dropped=bins.n_dropped,
+            gauss_id=bins.gauss_id,
+        )

@@ -9,21 +9,20 @@ alone: binning, the render forward, render + loss forward, the gather
 forward and backward, the compositing kernels forward and backward, the
 projection fwd+bwd, the SSIM loss fwd+bwd, and the full step
 (`render_step`: `render()` + photometric loss, forward and backward, as
-the JAX tool times it) in ms and Mpix/s, and beside it the stage-labelled
-step that the profile CLI traces (`fwd_bwd_step`). Each time is the median of 7 calls
-after a warm-up, CUDA events on the card (`utils/profiling.timed`); the
-JAX tool's chain of calls inside one jit has no counterpart here.
+the JAX tool times it; the profile CLI traces it) in ms and Mpix/s. Each
+time is the median of 7 calls after a warm-up, CUDA events on the card
+(`utils/profiling.timed`); the JAX tool's chain of calls inside one jit
+has no counterpart here.
 
-`fwd_bwd_step` is the same step stage by stage, each stage under a
-`torch.profiler.record_function` label ("step/projection", ...), calling
-the functions `render()` calls; the profile CLI traces it.
-`tests/test_torch_profile.py` holds its loss and gradients equal to
-`render_step`'s, so that the two cannot drift apart.
-`train_step_stages` splits a training step of a trained model the same way,
-`fisheye_step_stages` a fisheye step and `cubemap_step_stages` a cubemap
-step (`chip_smoke.py` calls all three). For a hybrid or MCMC state the
-first two add `hybrid_mcmc_stages`: the specular colour's forward and its
-backward alone, one `mcmc_step` and one `mcmc_noise_step`.
+`stage_split` times the program's own step by its spans
+(`utils/spans.py`): a listener synchronises the card at every span
+boundary and charges the time since the last one to the innermost open
+span. `train_step_stages` splits `train_step` of a trained model so,
+`fisheye_step_stages` `fisheye_train_step` and `cubemap_step_stages`
+`cubemap_train_step` (`chip_smoke.py` calls all three). For a hybrid or
+MCMC state the first two add `hybrid_mcmc_stages`: the specular colour's
+forward and its backward alone, one `mcmc_step` and one
+`mcmc_noise_step`.
 """
 
 from __future__ import annotations
@@ -34,18 +33,23 @@ import json
 import time
 
 import torch
-from torch.profiler import record_function
 
-from ..core.projection import project_gaussians
+from ..core.projection import distance_to_camera, project_gaussians
 from ..raster import binning, composite, tiles
 from ..raster.render import RenderConfig, build_packet_table, gather_rows, render
 from ..train.losses import photometric_loss
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.profiling import timed, toy_workload
 
 ARGS = ("xyz", "scales", "quats", "opacity", "sh_coeffs")
 CAM_LEAVES = ("dq", "dt", "fovx", "fovy")
-STAGES = ("projection", "binning", "gather", "composite_fwd", "loss", "backward")
+# the spans of `render_step`
+STAGES = ("render", "projection", "binning", "gather", "composite", "loss",
+          "backward")
+# the layer spans of a training step (a fisheye step adds "lens")
+STEP_STAGES = ("projection", "binning", "gather", "composite", "loss",
+               "backward", "optimizers")
 
 
 def _leaves(sc):
@@ -60,35 +64,14 @@ def _leaves(sc):
 
 def render_step(sc, cfg, gt):
     """One `render()` + photometric-loss step against `gt` (3, H, W),
-    forward and backward. Returns the loss and its gradients: the five
-    Gaussian tensors of `ARGS`, then the camera's `CAM_LEAVES`."""
+    forward and backward, its loss and backward under their spans. Returns
+    the loss and its gradients: the five Gaussian tensors of `ARGS`, then
+    the camera's `CAM_LEAVES`."""
     leaves, cam_leaves, cam = _leaves(sc)
-    loss = photometric_loss(render(*leaves, cam, sc["static"], cfg).render, gt)
-    return loss.detach(), torch.autograd.grad(loss, leaves + cam_leaves)
-
-
-def fwd_bwd_step(sc, cfg, gt):
-    """`render_step` stage by stage, each under
-    `record_function("step/<stage>")`, for a trace. Returns what
-    `render_step` returns."""
-    leaves, cam_leaves, cam = _leaves(sc)
-    static = sc["static"]
-    tx, ty = tiles.tile_grid(static.width, static.height)
-    with record_function("step/projection"):
-        proj = project_gaussians(*leaves, cam, static, cfg.sh_degree)
-    with record_function("step/binning"):
-        bins = binning.bin_gaussians(proj.detach(), tx, ty, cfg.max_instances)
-    with record_function("step/gather"):
-        rows = gather_rows(build_packet_table(proj, proj.x2d, proj.y2d), None,
-                           bins.gauss_id)
-    with record_function("step/composite_fwd"):
-        color4, _ = composite.composite_fwd(rows, bins.tile_start,
-                                            bins.tile_count, tx, ty)
-    with record_function("step/loss"):
-        img = tiles.tiles_to_image(color4.transpose(1, 2)[..., :3], tx, ty,
-                                   static.width, static.height)
+    img = render(*leaves, cam, sc["static"], cfg).render
+    with spans.span("loss"):
         loss = photometric_loss(img, gt)
-    with record_function("step/backward"):
+    with spans.span("backward"):
         grads = torch.autograd.grad(loss, leaves + cam_leaves)
     return loss.detach(), grads
 
@@ -147,97 +130,63 @@ def stage_times(n, size, max_instances, device):
     report("FULL fwd+bwd step", lambda: render_step(sc, cfg, gt))
     out["Mpix/s"] = size * size / (out["FULL fwd+bwd step"] / 1e3) / 1e6
     print(f"  -> {out['Mpix/s']:.2f} Mpix/s")
-    # the stage-labelled step the profile CLI traces, beside the real one
-    report("labelled step (traced)", lambda: fwd_bwd_step(sc, cfg, gt))
     return out
 
 
 def train_step_stages(state, scene, cfg, device):
     """Where a training step of `state` on `scene`'s train view 0 goes, on
-    the card: the stages of `train_step` run one by one with a synchronise
-    after each, the backward kernel timed apart, then `train_step` itself
-    and the peak memory; for a hybrid or MCMC state the specular colour
-    and the regularisers are stages of their own, and `hybrid_mcmc_stages`
-    follows. Prints and returns the stages (ms), the step times and the
-    peak memory (GiB)."""
-    from ..core.camera import CameraParams
-    from ..train.loop import (extra_color, mcmc_regularisers, step_specular,
-                              train_step, zero_spec_grads)
-    from ..train.optim import CAMERA_FIELDS, camera_lrs, row_adam_update
+    the card, at SH degree 0: `train_step` split by its spans
+    (`stage_split`), the backward kernel timed apart
+    (`backward_kernel_ms`), then `train_step` itself and the peak memory;
+    for a hybrid or MCMC state `hybrid_mcmc_stages` follows. Prints and
+    returns the stages (ms), the step times and the peak memory (GiB)."""
+    from ..train.loop import train_step
 
-    g, alive, cams = state.g, state.alive, state.cams
-    static, idx = scene.static, 0
+    idx = 0
     gt = scene.train_image(idx)
     bg = torch.zeros(3, device=device)
     rcfg = RenderConfig(sh_degree=0)
-    stages = {}
-    for rep in range(3):
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
 
-        def tick(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stages[name] = (now - last[0]) * 1e3
-            last[0] = now
+    def step():
+        return train_step(state, gt, idx, bg, scene.static, rcfg, cfg)
 
-        row = {f: getattr(cams, f)[idx].detach().clone().requires_grad_(True)
-               for f in CAMERA_FIELDS}
-        cam = CameraParams(q_init=cams.q_init[idx], t_init=cams.t_init[idx], **row)
-        probe = torch.zeros((state.capacity, 2), device=device, requires_grad=True)
-        absp = torch.zeros_like(probe, requires_grad=True)
-        extra = extra_color(state, cam)
-        if extra is not None:
-            tick("specular")
-        proj = project_gaussians(g.xyz, g.scaling(), g.quats, g.opacity(alive),
-                                 g.sh_coeffs(), cam, static, 0, align=state.align,
-                                 extra_color=extra)
-        x2d, y2d = proj.x2d + probe[:, 0], proj.y2d + probe[:, 1]
-        tick("projection_sh")
-        tx, ty = tiles.tile_grid(static.width, static.height)
-        bins = binning.bin_gaussians(
-            dataclasses.replace(proj, x2d=x2d, y2d=y2d).detach(), tx, ty)
-        tick("binning")
-        rows = gather_rows(build_packet_table(proj, x2d, y2d), absp, bins.gauss_id)
-        tick("gather")
-        color4, t_final = composite.composite_fwd(rows, bins.tile_start,
-                                                  bins.tile_count, tx, ty)
-        tick("forward_kernel")
-        out = color4.transpose(1, 2)
-        img = tiles.tiles_to_image(out[..., :3] + t_final[..., None] * bg, tx, ty,
-                                   static.width, static.height)
-        loss = photometric_loss(img, gt, cfg.opt.lambda_dssim)
-        tick("loss")
-        if cfg.mcmc:
-            loss = loss + mcmc_regularisers(g, alive, cfg)
-            tick("mcmc_regularisers")
-        state.g_opt.zero_grad()
-        zero_spec_grads(state)
-        loss.backward()
-        tick("backward_all")
-        state.g_opt.param_groups[0]["lr"] = state.xyz_sched(state.step)
-        state.g_opt.step()
-        step_specular(state)
-        row_adam_update(cams, state.cam_opt, {f: row[f].grad for f in row}, idx,
-                        camera_lrs(cfg.calib, state.step))
-        tick("optimizer")
-    with torch.no_grad():
-        g_c = torch.randn_like(color4)
-        g_tf = torch.randn_like(t_final)
-        bwd_ms = timed(lambda: composite.composite_bwd(
-            rows.detach(), bins.tile_start, bins.tile_count, tx, ty, g_c, g_tf,
-            color4.detach(), t_final.detach()), device, 10)
+    stages = stage_split(step)
+    cam = state.cams[idx]
+    bwd_ms, instances = backward_kernel_ms(state, cam, scene.static, 0, device)
     stages["backward_kernel"] = bwd_ms
-    stages["backward_rest"] = stages["backward_all"] - bwd_ms
+    stages["backward_rest"] = stages["backward"] - bwd_ms
     stages.update(hybrid_mcmc_stages(state, cfg, cam, device))
 
-    step_ms, peak = _step_ms_and_peak(
-        lambda: train_step(state, gt, idx, bg, static, rcfg, cfg))
+    step_ms, peak = _step_ms_and_peak(step)
     print("train step stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    print(f"train step: {bins.n_instances} instances, {int(alive.sum())} live of "
+    print(f"train step: {instances} instances, {int(state.alive.sum())} live of "
           f"{state.capacity}; step_ms " + " ".join(f"{x:.2f}" for x in step_ms)
           + f"; peak memory {peak:.2f} GiB")
     return {"stages_ms": stages, "step_ms": step_ms, "peak_gib": peak}
+
+
+def backward_kernel_ms(state, cam, static, sh_degree, device,
+                       sort_by_distance: bool = False):
+    """The backward compositing kernel alone on `cam`'s view of the
+    TrainState `state` (CUDA events, median of 10, random cotangents) and
+    the view's instance count."""
+    g = state.g
+    with torch.no_grad():
+        proj = project_gaussians(g.xyz, g.scaling(), g.quats,
+                                 g.opacity(state.alive), g.sh_coeffs(), cam,
+                                 static, sh_degree, align=state.align)
+        tx, ty = tiles.tile_grid(static.width, static.height)
+        bins = binning.bin_gaussians(proj, tx, ty, sort_key_depth=(
+            distance_to_camera(g.xyz, cam, state.align)
+            if sort_by_distance else None))
+        rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
+            1, bins.gauss_id)
+        comp = (rows, bins.tile_start, bins.tile_count, tx, ty)
+        color4, t_final = composite.composite_fwd(*comp)
+        g_c, g_tf = torch.randn_like(color4), torch.randn_like(t_final)
+        ms = timed(lambda: composite.composite_bwd(*comp, g_c, g_tf, color4,
+                                                   t_final), device, 10)
+    return ms, bins.n_instances
 
 
 def hybrid_mcmc_stages(state, cfg, cam, device) -> dict:
@@ -310,23 +259,36 @@ def print_busy(label: str, summary: dict, reps: int = 1, top: int = 8) -> None:
                   summary["kernel_ms"].items(), key=lambda kv: -kv[1])[:top]))
 
 
-def _stage_split(step) -> dict:
-    """step(tick) run 3 times, tick(name) synchronising the card after each
-    stage: the last rep's host ms by stage name, summed over the calls of a
-    name (a cubemap step's five renders)."""
-    stages = {}
-    for _ in range(3):
+def stage_split(step, reps: int = 3) -> dict:
+    """step() run `reps` times under a span listener that synchronises the
+    card at every span boundary (`utils/spans.listening`): the last rep's
+    host ms by span name, each span charged the time in which it was the
+    innermost open one, summed over the spans of a name (a cubemap step's
+    five renders); the time outside every span under "other"."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    stages, stack, last = {}, [], [0.0]
+
+    def charge():
+        sync()
+        now = time.perf_counter()
+        key = stack[-1] if stack else "other"
+        stages[key] = stages.get(key, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
+
+    def listen(name, event):
+        charge()
+        if event == "enter":
+            stack.append(name)
+        else:
+            stack.pop()
+
+    for _ in range(reps):
         stages.clear()
-        torch.cuda.synchronize()
-        last = [time.perf_counter()]
-
-        def tick(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stages[name] = stages.get(name, 0.0) + (now - last[0]) * 1e3
-            last[0] = now
-
-        step(tick)
+        sync()
+        last[0] = time.perf_counter()
+        with spans.listening(listen):
+            step()
+        charge()
     return stages
 
 
@@ -347,17 +309,14 @@ def _step_ms_and_peak(step):
 def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str) -> dict:
     """Where a fisheye training step of a CalibTrainer's state on camera 0
     goes, on the card, at SH degree 0 (a training step before the first
-    SH ramp): `fisheye_train_step` run with a
-    synchronising timer after each stage (projection, binning, gather,
-    forward kernel, lens flow, warp and crop, loss, backward, optimisers;
-    3 reps, the last kept); then, timed apart with CUDA events, the
+    SH ramp): `fisheye_train_step` split by its spans (`stage_split`:
+    `STEP_STAGES` and "lens"); then, timed apart with CUDA events, the
     backward kernel, the lens flow (alone and with its backward), and its
     pieces with their backwards: the Newton inverse of the control points,
     the upsampling of the control flow and the warp with the crop, and
-    `hybrid_mcmc_stages` (with a "specular" stage in the step's split when
-    hybrid); a profiler trace of one step (device-busy share, kernels by
-    time); 5 whole steps (host clock) and the peak memory. Prints them and
-    returns
+    `hybrid_mcmc_stages`; a profiler trace of one step (device-busy share,
+    kernels by time, the spans); 5 whole steps (host clock) and the peak
+    memory. Prints them and returns
     {"stages_ms", "step_ms", "peak_gib", "instances", "trace"}."""
     from ..calib.distortion import compute_flow
     from ..calib.iresnet import iresnet_forward
@@ -369,30 +328,16 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str) -> dict:
     rcfg = RenderConfig(sh_degree=sh_degree)
     opt_lens, use_vig = trainer.lens_window(1)
 
-    def step(timer=None):
+    def step():
         return fisheye_train_step(trainer.state, fish_gt, trainer.p_view, idx,
                                   trainer.bg, setup, rcfg, cfg,
-                                  trainer.schedules, opt_lens, use_vig,
-                                  timer=timer)
+                                  trainer.schedules, opt_lens, use_vig)
 
-    stages = _stage_split(step)
+    stages = stage_split(step)
     base = trainer.base
     cam = base.cams[idx]
-    with torch.no_grad():
-        proj = project_gaussians(base.g.xyz, base.g.scaling(), base.g.quats,
-                                 base.g.opacity(base.alive), base.g.sh_coeffs(),
-                                 cam, setup.render_static, sh_degree,
-                                 align=base.align)
-        tx, ty = tiles.tile_grid(setup.render_static.width,
-                                 setup.render_static.height)
-        bins = binning.bin_gaussians(proj, tx, ty)
-        rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
-            1, bins.gauss_id)
-        comp = (rows, bins.tile_start, bins.tile_count, tx, ty)
-        color4, t_final = composite.composite_fwd(*comp)
-        g_c, g_tf = torch.randn_like(color4), torch.randn_like(t_final)
-        stages["backward_kernel"] = timed(lambda: composite.composite_bwd(
-            *comp, g_c, g_tf, color4, t_final), device, 10)
+    stages["backward_kernel"], instances = backward_kernel_ms(
+        base, cam, setup.render_static, sh_degree, device)
     stages["backward_rest"] = stages["backward"] - stages["backward_kernel"]
 
     lens, p_view = trainer.state.lens, trainer.p_view
@@ -441,23 +386,21 @@ def fisheye_step_stages(trainer, fish_gt, device, trace_dir: str) -> dict:
     step_ms, peak = _step_ms_and_peak(step)
     print("fisheye step stages_ms " + json.dumps(
         {k: round(v, 3) for k, v in stages.items()}))
-    print(f"fisheye step (SH {sh_degree}): {bins.n_instances} instances at "
+    print(f"fisheye step (SH {sh_degree}): {instances} instances at "
           f"{setup.render_static.width}x{setup.render_static.height}, "
           f"{int(base.alive.sum())} live of {base.capacity}, control grid "
           f"{setup.grid_hw}, flow {setup.flow_hw}; step_ms "
           + " ".join(f"{x:.2f}" for x in step_ms) + f"; peak memory {peak:.2f} GiB")
     return {"stages_ms": stages, "step_ms": step_ms, "peak_gib": peak,
-            "instances": bins.n_instances, "trace": summary}
+            "instances": instances, "trace": summary}
 
 
 def cubemap_step_stages(trainer, gt, device, trace_dir: str) -> dict:
     """Where a cubemap training step of a CalibTrainer's state on camera 0
     against `gt` goes, on the card, at SH degree 0 (a training step before
-    the first SH ramp): `cubemap_train_step` run with a synchronising
-    timer after each stage, summed over the five renders (projection,
-    binning, gather, forward kernel), then the ray field, the five warps,
-    the loss, the backward and the optimisers (3 reps, the last kept);
-    then, timed apart with CUDA events, the backward kernel on each face's
+    the first SH ramp): `cubemap_train_step` split by its spans
+    (`stage_split`: `STEP_STAGES`, each summed over the five renders, and
+    "lens", the ray field and the five warps); then, timed apart with CUDA events, the backward kernel on each face's
     render (their sum `backward_kernel`), the ray field (the cubemap net
     on the control grid and the upsampling) alone and with its backward,
     and the five warps with their backward; a profiler trace of one step
@@ -465,7 +408,6 @@ def cubemap_step_stages(trainer, gt, device, trace_dir: str) -> dict:
     clock) and the peak memory. Prints them and returns {"stages_ms",
     "step_ms", "peak_gib", "instances", "trace"}."""
     from ..calib import cubemap
-    from ..core.projection import distance_to_camera
     from ..train.calibrated import cubemap_train_step, face_cameras
 
     setup, cfg = trainer.setup, trainer.cfg
@@ -473,33 +415,21 @@ def cubemap_step_stages(trainer, gt, device, trace_dir: str) -> dict:
     rcfg = RenderConfig(sh_degree=sh_degree)
     sub_q, sub_t = trainer.sub_q[idx], trainer.sub_t[idx]
 
-    def step(timer=None):
+    def step():
         return cubemap_train_step(trainer.state, gt, idx, trainer.bg, sub_q,
-                                  sub_t, setup, rcfg, cfg, trainer.schedules,
-                                  timer=timer)
+                                  sub_t, setup, rcfg, cfg, trainer.schedules)
 
-    stages = _stage_split(step)
+    stages = stage_split(step)
     base = trainer.base
-    g, static = base.g, setup.static
+    static = setup.static
     instances, bwd_ms, face_renders = [], 0.0, []
-    with torch.no_grad():
-        for c in face_cameras(base.cams[idx], sub_q, sub_t):
-            proj = project_gaussians(g.xyz, g.scaling(), g.quats,
-                                     g.opacity(base.alive), g.sh_coeffs(), c,
-                                     static, sh_degree, align=base.align)
-            tx, ty = tiles.tile_grid(static.width, static.height)
-            bins = binning.bin_gaussians(proj, tx, ty, sort_key_depth=
-                                         distance_to_camera(g.xyz, c, base.align))
-            rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
-                1, bins.gauss_id)
-            comp = (rows, bins.tile_start, bins.tile_count, tx, ty)
-            color4, t_final = composite.composite_fwd(*comp)
-            g_c, g_tf = torch.randn_like(color4), torch.randn_like(t_final)
-            bwd_ms += timed(lambda: composite.composite_bwd(
-                *comp, g_c, g_tf, color4, t_final), device, 10)
-            instances.append(bins.n_instances)
-            face_renders.append(torch.rand((3, static.height, static.width),
-                                           device=device))
+    for c in face_cameras(base.cams[idx], sub_q, sub_t):
+        ms, n = backward_kernel_ms(base, c, static, sh_degree, device,
+                                   sort_by_distance=True)
+        bwd_ms += ms
+        instances.append(n)
+        face_renders.append(torch.rand((3, static.height, static.width),
+                                       device=device))
     stages["backward_kernel"] = bwd_ms
     stages["backward_rest"] = stages["backward"] - bwd_ms
 

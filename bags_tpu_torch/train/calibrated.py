@@ -58,6 +58,7 @@ from ..core.camera import CameraParams, CameraStatic, rotate_camera_pose
 from ..core.lie import quat_to_rotmat
 from ..model.densify import update_stats
 from ..raster.render import RenderConfig, render
+from ..utils.spans import span
 from .checkpoint import PREFIX, copy_leaves, load_checkpoint, save_checkpoint
 from .config import TrainConfig
 from .loop import (StepMetrics, Trainer, TrainState, accumulate_stats,
@@ -330,9 +331,7 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
                        p_view: torch.Tensor, cam_idx, bg: torch.Tensor,
                        setup: FisheyeSetup, rcfg: RenderConfig,
                        cfg: TrainConfig, schedules, opt_lens: bool,
-                       use_vignetting: bool,
-                       timer: Optional[Callable[[str], None]] = None
-                       ) -> StepMetrics:
+                       use_vignetting: bool) -> StepMetrics:
     """One fisheye step on camera `cam_idx` against `fish_gt` (3, H, W);
     updates `state` in place (`make_fisheye_train_step`, calibrated.py:206).
 
@@ -342,15 +341,14 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
     moments still step, so the lens moves by its decayed first moment. The
     vignetting model steps with use_vignetting, the shift with
     `--opt_shift`. A hybrid state's render adds the specular colour and its
-    MLP steps (`loop.step_specular`). timer(name), if given, is called
-    after each stage.
+    MLP steps (`loop.step_specular`). The lens flow and warp run under the
+    span "lens", the masks, vignetting and loss under "loss".
 
     `--batch_cams` K > 1: `cam_idx` is K distinct camera rows and `fish_gt`
     (K, 3, H, W); the K views (render, lens flow, warp, loss) run one after
     another and one backward of their mean loss steps every group once
     (calibrated.py:280-300); the image is then (K, 3, H, W) and n_dropped
     the sum of the views'."""
-    tick = timer or (lambda name: None)
     calib = cfg.calib
     b = state.base
     g = b.g
@@ -362,56 +360,54 @@ def fisheye_train_step(state: CalibState, fish_gt: torch.Tensor,
 
     outs, images, losses = [], [], []
     for v, gt_k in zip(views, gts):
-        extra = extra_color(b, v.cam)
-        if extra is not None:
-            tick("specular")
         out = render(g.xyz, g.scaling(), g.quats, g.opacity(b.alive),
                      g.sh_coeffs(), v.cam, static, rcfg, bg=bg, align=b.align,
-                     probe2d=v.probe, abs_probe=v.absp, extra_color=extra,
-                     shift_factors=state.shift if calib.opt_shift else None,
-                     timer=tick)
-        flow = dist_lib.compute_flow(state.lens, p_view, setup.grid_hw,
-                                     _proj_scale(v.cam), setup.flow_hw,
-                                     sensor_to_frustum=apply2gt)
-        tick("lens_flow")
-        if not apply2gt:
+                     probe2d=v.probe, abs_probe=v.absp,
+                     extra_color=extra_color(b, v.cam),
+                     shift_factors=state.shift if calib.opt_shift else None)
+        with span("lens"):
+            flow = dist_lib.compute_flow(state.lens, p_view, setup.grid_hw,
+                                         _proj_scale(v.cam), setup.flow_hw,
+                                         sensor_to_frustum=apply2gt)
             warped, mask, _ = dist_lib.apply_distortion(
-                state.lens, p_view, setup.grid_hw, out.render, None,
-                setup.flow_hw, final_hw=setup.fish_hw, apply2gt=False,
-                flow=flow)
-            tick("warp_crop")
-            gt_img = gt_k
-            if use_vignetting:
-                mask = mask * vignetting_mask(state.vig, *setup.fish_hw)[None]
-            if not calib.no_distortion_mask:
-                gt_img = gt_img * mask
-            image = warped
-            loss = photometric_loss(warped, gt_img, cfg.opt.lambda_dssim)
-        else:
-            gt_warped, mask, _ = dist_lib.apply_distortion(
-                state.lens, p_view, setup.grid_hw, gt_k, None, setup.flow_hw,
-                apply2gt=True, flow=flow)
-            tick("warp_crop")
-            image = out.render
-            if use_vignetting:
-                mask = mask * vignetting_mask(state.vig, static.height,
-                                              static.width)[None]
-            if not calib.no_distortion_mask:
-                image = image * mask
-            loss = photometric_loss(image, gt_warped, cfg.opt.lambda_dssim)
-        tick("loss")
+                state.lens, p_view, setup.grid_hw,
+                gt_k if apply2gt else out.render, None, setup.flow_hw,
+                final_hw=None if apply2gt else setup.fish_hw,
+                apply2gt=apply2gt, flow=flow)
+        with span("loss"):
+            if not apply2gt:
+                gt_img = gt_k
+                if use_vignetting:
+                    mask = mask * vignetting_mask(state.vig,
+                                                  *setup.fish_hw)[None]
+                if not calib.no_distortion_mask:
+                    gt_img = gt_img * mask
+                image = warped
+                loss = photometric_loss(warped, gt_img, cfg.opt.lambda_dssim)
+            else:
+                # the render against the GT warped into perspective
+                image = out.render
+                if use_vignetting:
+                    mask = mask * vignetting_mask(state.vig, static.height,
+                                                  static.width)[None]
+                if not calib.no_distortion_mask:
+                    image = image * mask
+                loss = photometric_loss(image, warped, cfg.opt.lambda_dssim)
         outs.append(out)
         images.append(image)
         losses.append(loss)
-    loss = losses[0] if batch is None else torch.stack(losses).mean()
+    with span("loss"):
+        loss = losses[0] if batch is None else torch.stack(losses).mean()
 
-    b.g_opt.zero_grad()
-    loss.backward()
-    tick("backward")
+    with span("optimizers"):
+        b.g_opt.zero_grad()
+    with span("backward"):
+        loss.backward()
 
-    grads = fisheye_optimizers(state, cfg, views, cam_idx, schedules, opt_lens,
-                               use_vignetting, [o.radii for o in outs])
-    tick("optimizers")
+    with span("optimizers"):
+        grads = fisheye_optimizers(state, cfg, views, cam_idx, schedules,
+                                   opt_lens, use_vignetting,
+                                   [o.radii for o in outs])
     image = images[0] if batch is None else torch.stack(images)
     return StepMetrics(loss=loss.detach(), l1=loss.detach(),
                        n_alive=b.alive.sum(),
@@ -537,8 +533,7 @@ def cubemap_optimizers(state: CalibState, cfg: TrainConfig, view, cam_idx: int,
 def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
                        bg: torch.Tensor, sub_q: torch.Tensor,
                        sub_t: torch.Tensor, setup: CubemapSetup,
-                       rcfg: RenderConfig, cfg: TrainConfig, schedules,
-                       timer: Optional[Callable[[str], None]] = None
+                       rcfg: RenderConfig, cfg: TrainConfig, schedules
                        ) -> StepMetrics:
     """One cubemap step on camera `cam_idx` against its GT (3, H, W), the
     dataset's perspective image; updates `state` in place
@@ -554,8 +549,8 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     step behind the NaN guard (a non-finite gradient zeroes them all; the
     moments still step). A hybrid state adds the specular colour seen from
     the camera to all five renders (the faces share its centre) and steps
-    its MLP. timer(name), if given, is called after each stage."""
-    tick = timer or (lambda name: None)
+    its MLP. The ray field and warps run under the span "lens"
+    (`render_cubemap_faces`), the masked losses under "loss"."""
     b = state.base
     g = b.g
     rcfg = dataclasses.replace(rcfg, sort_by_distance=True)
@@ -565,30 +560,30 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     extra = extra_color(b, view.cam)
     main_cam, *side_cams = face_cameras(view.cam, sub_q, sub_t)
     main = render(*gauss, main_cam, setup.static, rcfg, bg=bg, align=b.align,
-                  probe2d=view.probe, abs_probe=view.absp, extra_color=extra,
-                  timer=tick)
+                  probe2d=view.probe, abs_probe=view.absp, extra_color=extra)
     outs = [main] + [render(*gauss, c, setup.static, rcfg, bg=bg,
-                            align=b.align, extra_color=extra, timer=tick)
+                            align=b.align, extra_color=extra)
                      for c in side_cams]
     faces, _ = cubemap_lib.render_cubemap_faces(
         lambda i: outs[i].render, state.cubemap_net, setup.K,
-        setup.static.width, setup.static.height, setup.scale, setup.mask90,
-        timer=tick)
-    l1_sum = ssim_sum = 0.0
-    for img, hm in zip(faces, _half_masks(setup.circ)):
-        a, ref = img * setup.circ * hm, gt * setup.circ * hm
-        l1_sum = l1_sum + l1_loss(a, ref)
-        ssim_sum = ssim_sum + ssim(a, ref)
-    lam = cfg.opt.lambda_dssim
-    loss = (1 - lam) * l1_sum + lam * (5.0 - ssim_sum)
-    tick("loss")
+        setup.static.width, setup.static.height, setup.scale, setup.mask90)
+    with span("loss"):
+        l1_sum = ssim_sum = 0.0
+        for img, hm in zip(faces, _half_masks(setup.circ)):
+            a, ref = img * setup.circ * hm, gt * setup.circ * hm
+            l1_sum = l1_sum + l1_loss(a, ref)
+            ssim_sum = ssim_sum + ssim(a, ref)
+        lam = cfg.opt.lambda_dssim
+        loss = (1 - lam) * l1_sum + lam * (5.0 - ssim_sum)
 
-    b.g_opt.zero_grad()
-    loss.backward()
-    tick("backward")
+    with span("optimizers"):
+        b.g_opt.zero_grad()
+    with span("backward"):
+        loss.backward()
 
-    grads = cubemap_optimizers(state, cfg, view, cam_idx, schedules, main.radii)
-    tick("optimizers")
+    with span("optimizers"):
+        grads = cubemap_optimizers(state, cfg, view, cam_idx, schedules,
+                                   main.radii)
     return StepMetrics(loss=loss.detach(), l1=loss.detach(),
                             n_alive=b.alive.sum(),
                             n_dropped=sum(o.n_dropped for o in outs),

@@ -21,6 +21,11 @@ stack: the K views render one after another, one backward of the mean
 loss steps the Gaussians once and each camera row once, and the
 statistics are scaled back to a single view's.
 
+`Trainer.run` opens the span "step" around each step, and the step its
+layers' spans (`utils/spans.py`): "projection" (the activations and the
+specular colour too), `render()`'s, "loss", "backward" and "optimizers"
+(the gradients' zeroing, every optimizer and the statistics).
+
 The population keeps the JAX package's fixed capacity and `alive` mask; the
 instance count of each view is dynamic, so there is no instance budget and
 no capacity ladder.
@@ -43,6 +48,7 @@ from ..model.densify import (DensifyResult, DensifyStats, densify_and_prune,
 from ..model import mcmc
 from ..model.gaussians import Gaussians
 from ..raster.render import RenderConfig, render
+from ..utils.spans import span
 from .config import TrainConfig
 from .losses import photometric_loss
 from .optim import (CAMERA_FIELDS, AdamMoments, RowAdamState,
@@ -124,8 +130,9 @@ def extra_color(state: TrainState, cam: CameraParams) -> Optional[torch.Tensor]:
     alignment) when the state is hybrid, else None."""
     if state.spec is None:
         return None
-    return specular_extra_color(state.spec, state.g.xyz, state.g.asg, cam,
-                                state.align)
+    with span("projection"):
+        return specular_extra_color(state.spec, state.g.xyz, state.g.asg, cam,
+                                    state.align)
 
 
 def zero_spec_grads(state: TrainState) -> None:
@@ -277,18 +284,24 @@ def train_step(state: TrainState, gt: torch.Tensor, cam_idx,
                      g.sh_coeffs(), v.cam, static, rcfg, bg=bg,
                      align=state.align, probe2d=v.probe, abs_probe=v.absp,
                      extra_color=extra_color(state, v.cam))
-        losses.append(photometric_loss(out.render, gt_k, cfg.opt.lambda_dssim))
+        with span("loss"):
+            losses.append(photometric_loss(out.render, gt_k,
+                                           cfg.opt.lambda_dssim))
         outs.append(out)
-    loss = losses[0] if batch is None else torch.stack(losses).mean()
-    if cfg.mcmc:
-        loss = loss + mcmc_regularisers(g, state.alive, cfg)
-    zero_step_grads(state)
-    loss.backward()
+    with span("loss"):
+        loss = losses[0] if batch is None else torch.stack(losses).mean()
+        if cfg.mcmc:
+            loss = loss + mcmc_regularisers(g, state.alive, cfg)
+    with span("optimizers"):
+        zero_step_grads(state)
+    with span("backward"):
+        loss.backward()
 
-    grads = step_optimizers(state, cfg, views, cam_idx)
-    accumulate_stats(state, [v.probe.grad for v in views],
-                     [v.absp.grad for v in views], [o.radii for o in outs])
-    with torch.no_grad():
+    with span("optimizers"):
+        grads = step_optimizers(state, cfg, views, cam_idx)
+        accumulate_stats(state, [v.probe.grad for v in views],
+                         [v.absp.grad for v in views], [o.radii for o in outs])
+    with torch.no_grad(), span("loss"):
         if batch is None:
             image = outs[0].render.detach()
         else:
@@ -523,7 +536,8 @@ class Trainer:
             if it % 1000 == 0 and self.active_sh_degree < self.max_sh_degree:
                 self.active_sh_degree += 1
             idx = self._step_cameras(pop=True)
-            metrics = self.step(idx, self._fetch_gt(idx), it)
+            with span("step"):
+                metrics = self.step(idx, self._fetch_gt(idx), it)
 
             if self.cfg.mcmc:
                 # MCMC cadence (train.py:363-372,434-441): relocation at the

@@ -65,12 +65,12 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      to it and timed in turns with it;
   8. the render CLI restores `chkpnt30.npz` (optimised cameras, no
      `--ply_only`) and renders both splits with `--optim_test_pose_iter 5`;
-  9. where a full-width training step's time goes, by stage, the whole
+  9. where a full-width training step's time goes, by its spans, the whole
      step's time and the peak device memory;
  10. the profiling tools at their defaults, in-process through their
      `main(argv)` so that the launch counts are read: the profile CLI with
      `--trace` (the trace must name both compositing kernels and every
-     stage), `tools.stagebench`, `tools.kernablate` and `tools.kernablate
+     span of the traced step), `tools.stagebench`, `tools.kernablate` and `tools.kernablate
      real` (fori and every variant identical to the forward kernel); each
      tool must launch its kernels. Then, at the tools' workload (100,000
      Gaussians, 800x800, about 540k instances), every kernel they launch
@@ -162,8 +162,8 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      5's dataset (the only mode with the MCMC regularisers) with (b)'s
      checks but the falling loss, and the render CLI's restore, one launch
      a view, finite PSNR; then that model's pose step split by stage
-     (`stagebench.train_step_stages`: the specular colour, the
-     regularisers, the specular colour's forward and backward alone,
+     (`stagebench.train_step_stages`: every layer span of the step, the
+     specular colour's forward and backward alone,
      `mcmc_step`, `mcmc_noise_step`, the step over 5 steps, the peak
      memory), beside step 9's split of the plain pose step;
  15. slice 5's evaluation tools, on the models steps 6, 8 and 14b left:
@@ -260,26 +260,21 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def frame(g, alive, cam, static, sh_degree, timer=None, sort_by_distance=False):
+def frame(g, alive, cam, static, sh_degree, sort_by_distance=False):
     """Projection, binning and gather of one view, as `render()` runs them
     (with sort_by_distance, each tile's instances in order of distance to
-    the camera, as the cubemap mode's renders sort them). timer(name) is
-    called after each stage."""
+    the camera, as the cubemap mode's renders sort them)."""
     from bags_tpu_torch.core.projection import distance_to_camera, project_gaussians
     from bags_tpu_torch.raster import binning, tiles
     from bags_tpu_torch.raster.render import build_packet_table
 
-    tick = timer or (lambda name: None)
     proj = project_gaussians(g.xyz, g.scaling(), g.quats, g.opacity(alive),
                              g.sh_coeffs(), cam, static, sh_degree)
-    tick("projection")
     tiles_x, tiles_y = tiles.tile_grid(static.width, static.height)
     bins = binning.bin_gaussians(proj, tiles_x, tiles_y, sort_key_depth=(
         distance_to_camera(g.xyz, cam) if sort_by_distance else None))
-    tick("binning")
     rows = build_packet_table(proj, proj.x2d, proj.y2d).index_select(
         1, bins.gauss_id)
-    tick("gather")
     return rows, bins, tiles_x, tiles_y
 
 
@@ -785,6 +780,7 @@ def render_path(model, data, scene, device):
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.render import RenderConfig, render
     from bags_tpu_torch.raster.tiles import composite_tiles_plain
+    from bags_tpu_torch.tools import stagebench
     from bags_tpu_torch.utils.profiling import (bound, fwd_bytes, fwd_ops,
                                                 pair_counts, timed)
 
@@ -855,27 +851,18 @@ def render_path(model, data, scene, device):
               f"{fwd_ops(counts)} FP32 ops -> {bound_ms:.4f} ms ({bound_by}); "
               f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms")
 
-        # where the time of one view goes (view 0, after warm-up)
-        stages = {}
-        for rep in range(2):
-            torch.cuda.synchronize()
-            last = [time.perf_counter()]
+        # where the time of one view goes (view 0, after warm-up): the
+        # activations and render() by their spans, the PNG write "other"
+        def one_view():
+            img = render(g.xyz, g.scaling(), g.quats, g.opacity(alive),
+                         g.sh_coeffs(), cams[0], scene.static, cfg).render
+            render_cli.save_png(os.path.join(WORK, "timing.png"),
+                                torch.clamp(img, 0, 1))
 
-            def tick(name):
-                torch.cuda.synchronize()
-                now = time.perf_counter()
-                stages[name] = (now - last[0]) * 1e3
-                last[0] = now
-
-            rows, bins, tx, ty = frame(g, alive, cams[0], scene.static, 3, tick)
-            c4, _ = composite.composite_fwd(rows, bins.tile_start,
-                                            bins.tile_count, tx, ty)
-            tick("kernel")
-            img = torch.clamp(to_image(c4, tx, ty, scene.static), 0, 1)
-            tick("assemble")
-            render_cli.save_png(os.path.join(WORK, "timing.png"), img)
-            tick("png_write")
+        stages = stagebench.stage_split(one_view, reps=2)
         print("render stages_ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+        missing = [k for k in stagebench.STAGES[:5] if k not in stages]
+        check(not missing, f"the view's stage split lacks {missing}")
     view0 = (rows, bins.tile_start, bins.tile_count, tx, ty)
     return view0, {"name": "composite_fwd", "route": "cuda",
             "design": "footprint-culled ballot-word walk, 8x4 warps",
@@ -1072,7 +1059,7 @@ def tools_path(device):
         check(any(k in n for n in trace["kernel_ms"]),
               f"trace: no {k} among {len(trace['kernel_ms'])} kernels")
     for stage in stagebench.STAGES:
-        check(f"step/{stage}" in trace["stages"], f"trace: no step/{stage} label")
+        check(f"bags.{stage}" in trace["stages"], f"trace: no bags.{stage} span")
     return launches
 
 
@@ -2130,8 +2117,8 @@ def pose_mcmc_hybrid_path(data):
     cfg, scene, state = render_cli.restore_trained(model, data, -1,
                                                    torch.device("cuda"))[:3]
     st = stagebench.train_step_stages(state, scene, cfg, torch.device("cuda"))
-    keys = ("specular", "mcmc_regularisers", "specular_fwd_alone",
-            "specular_bwd_alone", "mcmc_step", "mcmc_noise_step")
+    keys = stagebench.STEP_STAGES + (
+        "specular_fwd_alone", "specular_bwd_alone", "mcmc_step", "mcmc_noise_step")
     missing = [k for k in keys if k not in st["stages_ms"]]
     check(not missing, f"the hybrid pose stage split lacks {missing}")
     return fwd, bwd, n_restore
@@ -2148,8 +2135,9 @@ def hybrid_stage_split(trainer, scene, device):
     out = stagebench.fisheye_step_stages(trainer, scene.fish_image(0), device,
                                          os.path.join(WORK, "fish_mcmc_trace"))
     st, tr = out["stages_ms"], out["trace"]
-    keys = ("specular", "specular_fwd_alone", "specular_bwd_alone",
-            "specular_fwd_bwd_alone", "mcmc_step", "mcmc_noise_step")
+    keys = stagebench.STEP_STAGES + ("lens", "specular_fwd_alone",
+                                     "specular_bwd_alone", "specular_fwd_bwd_alone",
+                                     "mcmc_step", "mcmc_noise_step")
     missing = [k for k in keys if k not in st]
     check(not missing, f"the hybrid stage split lacks {missing}")
     print("hybrid fisheye step: " + json.dumps(
