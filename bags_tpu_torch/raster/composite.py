@@ -11,14 +11,17 @@ PyTorch versions `tiles.composite_tiles_plain` and
 version. The profiling tool's kernels (the forward's no-exit twin fori and
 its variants without one piece of the loop each in `csrc/composite_fwd.cu`,
 the ablation modes in `csrc/composite_ablate.cu`, wrapped in
-`bags_tpu_torch/tools/kernablate.py`) are built and launched here too.
+`bags_tpu_torch/tools/kernablate.py`) are built and launched here too, and
+so are the projection's (`csrc/projection.cu`, wrapped in
+`core/projection.py`, which calls `load_kernel`).
 
 The kernels are compiled with nvcc for sm_90a into shared libraries with a
 plain C entry point, at first use, into `build/` at the repository root (one
-nvcc process per source, all started together; the build tag hashes the
-source and every header of `csrc/`, which the sources include), and loaded
-with ctypes. Both compositing kernels take the tiles in launch order, most
-instances first (`tile_order`). On the card `composite_fwd` is
+nvcc process per source, every source not yet built started together at the
+first load; the build tag hashes the source, every header of `csrc/`, which
+the sources include, and the flags), and loaded with ctypes. Both
+compositing kernels take the tiles in launch order, most instances first
+(`tile_order`). On the card `composite_fwd` is
 differentiable through `_CompositeFwd`, which computes that order once per
 frame for the forward and its backward, whose kernel it launches; on the
 CPU autograd differentiates the plain forward. The backward kernel writes
@@ -44,10 +47,14 @@ from .tiles import F_ACTIVE, NPIX, composite_bwd_plain, composite_tiles_plain
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"composite_fwd": CSRC / "composite_fwd.cu",
            "composite_bwd": CSRC / "composite_bwd.cu",
-           "composite_ablate": CSRC / "composite_ablate.cu"}
+           "composite_ablate": CSRC / "composite_ablate.cu",
+           "projection": CSRC / "projection.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# Flags of one source beside NVCC_FLAGS: the projection rounds every
+# product and sum on its own, as PyTorch's separate elementwise kernels do.
+SOURCE_FLAGS = {"projection": ["-fmad=false"]}
 
 _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 # rows, row stride, tile_start, tile_count, [tile_order,] tiles_x, num_tiles,
@@ -66,6 +73,17 @@ _ARGTYPES = {
     "composite_bwd_info": ("composite_bwd", [_P]),
     "composite_ablate_launch": ("composite_ablate", [_I] + _TILES),
     "composite_ablate_info": ("composite_ablate", [_I, _P]),
+    # deg, xyz, scales, quats, opacity, sh, K, camera, has_shift, width,
+    # height, n, then the outputs (and for the backward the 10 output
+    # gradients, the 5 input gradients, the camera partials and their
+    # count, the camera gradient) and the stream
+    "project_fwd_launch": ("projection",
+                           [_I] + [_P] * 5 + [_I, _P, _I, _I, _I, _I64]
+                           + [_P] * 3),
+    "project_bwd_launch": ("projection",
+                           [_I] + [_P] * 5 + [_I, _P, _I, _I, _I, _I64]
+                           + [_P] * 16 + [_I64, _P, _P]),
+    "project_info": ("projection", [_I, _I, _I, _P]),
 }
 
 # Kernel launches made through `composite_fwd` / `composite_bwd` in this
@@ -86,13 +104,17 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _out_path(name: str) -> Path:
     """The library of source `name`, tagged by the source, every header of
     `csrc/` and the flags, so that editing an included header rebuilds it."""
     digest = hashlib.sha256(SOURCES[name].read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:12]}.so"
 
 
@@ -109,7 +131,7 @@ def build(names=tuple(SOURCES)) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (cmd, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     failed = []
@@ -131,12 +153,13 @@ def build(names=tuple(SOURCES)) -> dict:
     return outs
 
 
-def _load(symbol: str):
-    """The C function `symbol` (a key of `_ARGTYPES`), its source built at
-    first use."""
+def load_kernel(symbol: str):
+    """The C function `symbol` (a key of `_ARGTYPES`). The first load builds
+    every source not yet built, one nvcc process each, all at once, so the
+    main path's kernels cost one compile time of set-up, not one each."""
     if symbol not in _libs:
         source, argtypes = _ARGTYPES[symbol]
-        lib = ctypes.CDLL(str(build((source,))[source]))
+        lib = ctypes.CDLL(str(build()[source]))
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -190,7 +213,7 @@ def launch_tiles(name, rows, tile_start, tile_count, tiles_x, tiles_y, *lead,
     after the int arguments `lead`, with the launch order `order` after
     tile_count where the kernel takes one) on the current stream; raise if
     the launch fails. Returns color+depth (T, 4, 256) and t (T, 256)."""
-    fn = _load(f"{name}_launch")
+    fn = load_kernel(f"{name}_launch")
     num_tiles = tiles_x * tiles_y
     color = torch.empty((num_tiles, 4, NPIX), dtype=torch.float32,
                         device=rows.device)
@@ -220,7 +243,7 @@ def _launch_bwd(rows, tile_start, tile_count, tiles_x, tiles_y, g_color, g_t,
     """The backward kernel; `order` is the forward's `tile_order`, computed
     here where the caller has none."""
     global bwd_launches
-    fn = _load("composite_bwd_launch")
+    fn = load_kernel("composite_bwd_launch")
     num_tiles = tiles_x * tiles_y
     d_rows = torch.zeros((F_ACTIVE, rows.shape[1]), dtype=torch.float32,
                          device=rows.device)
@@ -246,7 +269,7 @@ def kernel_info(name: str, *lead) -> dict:
     registers per thread, static shared memory per block (bytes) and local
     memory per thread (bytes; spills)."""
     out = (ctypes.c_int * 4)()
-    err = _load(f"{name}_info")(*lead, out)
+    err = load_kernel(f"{name}_info")(*lead, out)
     if err != 0:
         raise RuntimeError(f"{name}_info failed: cudaError {err}")
     return dict(zip(("blocks_per_sm", "registers", "smem_bytes", "local_bytes"),

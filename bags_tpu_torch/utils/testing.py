@@ -78,6 +78,48 @@ def make_toy_scene(n: int = 500, seed: int = 0, width: int = 64,
                 sh_degree=sh_degree)
 
 
+def projection_scene(n: int, k: int, seed: int, width: int = 64,
+                     height: int = 48, scale_range=(0.02, 0.12),
+                     live_every: int = 1, device=None) -> dict:
+    """Inputs of `project_gaussians` for n slots with k SH coefficients a
+    row, drawn on `device` from `seed` (make_toy_scene's box and camera:
+    the origin, looking +z, fovx 0.8, the aspect of width x height): one
+    slot in `live_every` alive, the others dead (opacity 0, as the capacity
+    past the live Gaussians), and for n >= 64 special slots first: 0-3
+    behind the camera, 4-7 inside the depth clamp (z = 1e-8), 8-11 far
+    outside the frustum, 12 at the camera centre, 13-15 alive and on screen
+    whatever live_every says."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    fovx = 0.8
+    fovy = 2.0 * float(np.arctan(np.tan(fovx / 2) * height / width))
+    ext = float(np.tan(fovx / 2)) * 4.0
+    xyz = torch.stack([uniform(-ext, ext, n), uniform(-ext, ext, n),
+                       uniform(4.0, 8.0, n)], dim=-1)
+    scales = torch.exp(uniform(np.log(scale_range[0]), np.log(scale_range[1]),
+                               n, 3))
+    quats = torch.randn((n, 4), generator=gen, device=dev)
+    opacity = uniform(0.2, 0.95, n)
+    opacity[torch.arange(n, device=dev) % live_every != 0] = 0.0
+    sh = 0.1 * torch.randn((n, k, 3), generator=gen, device=dev)
+    sh[:, 0] = torch.randn((n, 3), generator=gen, device=dev)
+    if n >= 64:
+        xyz[0:4, 2] = -2.0
+        xyz[4:8, 2] = 1e-8
+        xyz[8:12, 0] = 50.0
+        xyz[12] = 0.0
+        opacity[13:16] = 0.5
+    cam = CameraParams.create(np.eye(3, dtype=np.float32),
+                              np.zeros(3, np.float32), fovx, fovy, device=dev)
+    return dict(xyz=xyz, scales=scales, quats=quats, opacity=opacity,
+                sh_coeffs=sh, cam=cam,
+                static=CameraStatic(width=width, height=height))
+
+
 def write_colmap_scene(root: str, cams, width: int, height: int,
                        fx: float, fy: float, points: np.ndarray,
                        colors: np.ndarray, images=None) -> list[str]:

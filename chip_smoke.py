@@ -6,13 +6,14 @@
 Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
 `bags_tpu`. In order:
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the three kernel sources of `bags_tpu_torch/csrc` (the
+  2. builds the four kernel sources of `bags_tpu_torch/csrc` (the
      compositing forward with its no-exit twin fori, the backward, and the
-     profiling tool's ablation kernels; one nvcc per source, in parallel,
-     each including `composite_common.cuh`) and prints each build's time and
-     ptxas report, and the resident blocks per SM, registers, shared and
-     local memory of both compositing kernels, of each ablation mode and of
-     each variant of the forward;
+     profiling tool's ablation kernels, each including
+     `composite_common.cuh`; the projection pair; one nvcc per source, in
+     parallel) and prints each build's time and ptxas report, and the
+     resident blocks per SM, registers, shared and local memory of both
+     compositing kernels, of each ablation mode, of each variant of the
+     forward and of both projection kernels at every SH degree;
   3. holds the forward kernel against its plain PyTorch version at test
      sizes (toy scene, unaligned-spill scene, a tile with > 4096 instances):
      max abs difference <= 2e-5; and the backward kernel against
@@ -33,7 +34,18 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      chunks and 256-instance batches mid-chunk (`chunk_crossing_rows`),
      the fori kernel and every variant of the forward
      (`kernablate.VARIANTS`) bit-identical to the forward kernel there, and
-     fori within 2e-5 of `composite_tiles_plain`;
+     fori within 2e-5 of `composite_tiles_plain`; then (3b) the projection
+     kernels against the plain path, on 3,000-slot scenes at SH degrees
+     0-4 (with and without the pupil shift and the alignment, K above and
+     at the active count) and at the cells' shape (4,194,304 slots, 1M
+     alive, SH 3 of K = 16, 1600x1080): radius and rects equal, floats
+     within 1e-6 relative, every gradient within 1e-4 normwise of
+     `project_backward_plain` in float64, the camera gradient identical
+     across two launches; each kernel's time at the cells' shape beside
+     its byte bound and the plain version's, and the launches a view and a
+     step make through each path (the kernels line's two projection
+     entries, with the render and train CLIs' launches of steps 5 and 6,
+     one forward a view and one backward a step);
   4. camera gradients on the card: dq, dt, fovx, fovy of a toy render with
      both kernels against the same computation on the CPU (plain versions),
      atol 1e-5, rtol 1e-3; then pose recovery on the card (80 Adam steps of
@@ -232,7 +244,7 @@ Needs one CUDA card (H100, sm_90a) and nvcc; imports nothing of JAX or of
      50-iteration log and the densify rounds;
  19. prints the kernels line (JSON: the forward, the backward, the
      ablation kernel with every mode's numbers and resources, fori with
-     every variant's under "variants"; the forward's and the backward's
+     every variant's under "variants", the two projection kernels; the forward's and the backward's
      launches by path, fisheye, cubemap, recovery, slice 5 and slice 6 paths
      and the scale run included, and their numbers on the extended-FoV render and the
      cubemap faces) and, last, the device line (JSON).
@@ -679,6 +691,223 @@ def camera_grad_check(device):
               f"camera gradient {k}: card {got} vs cpu {v}")
 
 
+# Step 3b: the projection kernels (csrc/projection.cu) against the plain
+# path on the card: test-size scenes at SH degrees 0-4 (with and without
+# the pupil shift and the global alignment, K above and at the active
+# count), then the cells' shape: 4,194,304 slots, 1M alive, SH 3 of K = 16,
+# 1600x1080. Criteria, on the float outputs: radius, rect_rx and rect_ry
+# equal, every float within PROJ_FWD_RTOL of the plain version (relative
+# to max(1, |plain|)); on the gradients (seeded random cotangents of all 10
+# float outputs): each input's and the camera vector's normwise relative
+# error against `project_backward_plain` in float64 at most PROJ_GRAD_REL
+# (at test sizes the plain path's float32 autograd is held to the same),
+# and the camera vector's gradient identical across two backward launches.
+# On an H100 the floats read bit for bit equal and the gradients at most
+# 4.5e-7 off (the plain path's own float32 autograd 3.6e-7; PERF.md).
+PROJ_CELLS = dict(n=4_194_304, k=16, width=1600, height=1080,
+                  scale_range=(0.0025, 0.011), live_every=4)
+PROJ_FWD_RTOL = 1e-6
+PROJ_GRAD_REL = 1e-4
+PROJ_ARGS = ("xyz", "scales", "quats", "opacity", "sh_coeffs")
+
+
+def count_launches(fn):
+    """The kernel launches (device events other than copies and sets) that
+    fn() makes, by torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith(("Memcpy", "Memset")))
+
+
+def rel_err(a, b):
+    """Normwise relative error of a against b, in float64."""
+    import torch
+
+    b = b.double()
+    return float(torch.linalg.norm(a.double() - b) / torch.linalg.norm(b).clamp_min(1e-300))
+
+
+def projection_case(label, sc, deg, shift=None, align=None, seed=0):
+    """The kernel pair against the plain path on scene `sc` at SH degree
+    `deg`: the forward's outputs against `project_plain`, the backward's
+    gradients against `project_backward_plain` in float64 (and, on small
+    scenes, the plain path's float32 autograd against the same), the camera
+    vector's gradient across two launches. Returns the readings."""
+    import torch
+    from bags_tpu_torch.core import projection as P
+
+    args = [sc[k] for k in PROJ_ARGS]
+    static, n = sc["static"], sc["xyz"].shape[0]
+    camvec = P.camera_vector(sc["cam"], static, align, shift).detach()
+    has_shift = shift is not None
+    out = {"label": label, "deg": deg, "K": sc["sh_coeffs"].shape[1], "n": n}
+    with torch.no_grad():
+        before = P.project_fwd_launches
+        buf, ibuf = P._launch_fwd(*args, camvec, static, deg, has_shift)
+        check(P.project_fwd_launches == before + 1, f"{label}: forward launches")
+        plain = P.project_plain(*args, camvec, static, deg, has_shift)
+    torch.cuda.synchronize()
+    out["int_mismatch"] = {f: int((ibuf[i] != getattr(plain, f)).sum())
+                           for i, f in enumerate(P.INT_FIELDS)}
+    out["float_rel"] = {}
+    out["float_equal_share"] = {}
+    for i, f in enumerate(P.FLOAT_FIELDS):
+        want = getattr(plain, f)
+        diff = (buf[i] - want).abs() / want.abs().clamp_min(1.0)
+        out["float_rel"][f] = float(diff.max())
+        out["float_equal_share"][f] = float((buf[i] == want).float().mean())
+    out["visible"] = int((ibuf[0] > 0).sum())
+    del plain
+
+    gen = torch.Generator(device=buf.device).manual_seed(seed)
+    grads = [torch.randn(n, generator=gen, device=buf.device)
+             for _ in P.FLOAT_FIELDS]
+    before = P.project_bwd_launches
+    kern = P._launch_bwd(*args, camvec, static, deg, has_shift, grads, (True,) * 5)
+    again = P._launch_bwd(*args, camvec, static, deg, has_shift, grads, (True,) * 5)
+    check(P.project_bwd_launches == before + 2, f"{label}: backward launches")
+    out["repeat_identical"] = all(torch.equal(a, b) for a, b in zip(kern, again))
+    del again
+    ref = P.project_backward_plain(*[a.double() for a in args], camvec.double(),
+                                   static, deg, has_shift,
+                                   [g.double() for g in grads])
+    names = PROJ_ARGS + ("camera",)
+    out["grad_rel"] = {k: rel_err(a, b) for k, a, b in zip(names, kern, ref)}
+    out["camera_grad"] = kern[5].tolist()
+    if n <= 100_000:
+        leaves = [a.detach().requires_grad_(True) for a in args]
+        cv = camvec.clone().requires_grad_(True)
+        p = P.project_plain(*leaves, cv, static, deg, has_shift)
+        loss = sum((getattr(p, f) * g).sum() for f, g in zip(P.FLOAT_FIELDS, grads))
+        auto = torch.autograd.grad(loss, leaves + [cv])
+        out["plain_grad_rel"] = {k: rel_err(a, b) for k, a, b in zip(names, auto, ref)}
+    del ref
+    print(f"projection {label}: " + json.dumps(out))
+    return out
+
+
+def check_projection_case(out):
+    label = out["label"]
+    check(not any(out["int_mismatch"].values()),
+          f"{label}: integer outputs differ {out['int_mismatch']}")
+    worst = max(out["float_rel"].values())
+    check(worst <= PROJ_FWD_RTOL, f"{label}: float outputs off by {worst}")
+    check(out["repeat_identical"], f"{label}: two backward launches differ")
+    for k, err in out["grad_rel"].items():
+        check(err <= PROJ_GRAD_REL, f"{label}: gradient of {k} off by {err}")
+    for k, err in out.get("plain_grad_rel", {}).items():
+        check(err <= PROJ_GRAD_REL, f"{label}: plain autograd of {k} off by {err}")
+
+
+def projection_test_size(device):
+    """Step 3b's test-size cases (module note above)."""
+    import torch
+    from bags_tpu_torch.core.camera import GlobalAlignment
+    from bags_tpu_torch.utils.testing import projection_scene
+
+    align = GlobalAlignment(quaternion=torch.tensor([0.998, 0.03, -0.04, 0.02],
+                                                    device=device),
+                            log_scale=torch.tensor(0.05, device=device))
+    shift = torch.tensor([0.03, -0.02, 0.05], device=device)
+    cases = [(0, 1, None, None), (1, 16, shift, None), (2, 9, None, align),
+             (3, 16, shift, align), (3, 25, None, None), (4, 25, shift, align)]
+    outs = []
+    for i, (deg, k, sh, al) in enumerate(cases):
+        sc = projection_scene(3000, k, seed=i, live_every=2, device=device)
+        outs.append(projection_case(
+            f"sh{deg}_K{k}{'_shift' if sh is not None else ''}"
+            f"{'_align' if al is not None else ''}", sc, deg, sh, al, seed=i))
+    return outs
+
+
+def projection_full_size(device, smi):
+    """The kernel pair at the cells' shape: step 3b's comparison, then
+    each kernel alone, the plain version's forward (no grad, as a view
+    renders) and backward (from a retained graph), the launches each path
+    makes and the byte bounds. Returns the kernels line's two entries."""
+    import torch
+    from bags_tpu_torch.core import projection as P
+    from bags_tpu_torch.utils.profiling import timed
+    from bags_tpu_torch.utils.testing import projection_scene
+
+    sc = projection_scene(seed=7, device=device, **PROJ_CELLS)
+    out = projection_case("cells_shape_sh3", sc, 3, seed=7)
+    args = [sc[k] for k in PROJ_ARGS]
+    static, n, k = sc["static"], PROJ_CELLS["n"], PROJ_CELLS["k"]
+    camvec = P.camera_vector(sc["cam"], static).detach()
+    gen = torch.Generator(device=device).manual_seed(8)
+    grads = [torch.randn(n, generator=gen, device=device) for _ in P.FLOAT_FIELDS]
+    kern_fwd = lambda: P._launch_fwd(*args, camvec, static, 3, False)  # noqa: E731
+    kern_bwd = lambda: P._launch_bwd(*args, camvec, static, 3, False, grads,  # noqa: E731
+                                     (True,) * 5)
+    with torch.no_grad():
+        fwd_ms = timed(kern_fwd, device, 20)
+        plain_fwd_ms = timed(lambda: P.project_plain(*args, camvec, static, 3, False),
+                             device, 5)
+    bwd_ms = timed(kern_bwd, device, 20)
+    leaves = [a.detach().requires_grad_(True) for a in args]
+    cv = camvec.clone().requires_grad_(True)
+    p = P.project_plain(*leaves, cv, static, 3, False)
+    outs = [getattr(p, f) for f in P.FLOAT_FIELDS]
+    plain_bwd_ms = timed(lambda: torch.autograd.grad(
+        outs, leaves + [cv], grads, retain_graph=True), device, 3)
+    del p, outs
+
+    def step(plain):
+        proj = (P.project_plain(*leaves, P.camera_vector(sc["cam"], static), static,
+                                3, False) if plain else
+                P.project_gaussians(*leaves, sc["cam"], static, 3))
+        torch.autograd.grad([getattr(proj, f) for f in P.FLOAT_FIELDS], leaves,
+                            grads)
+
+    def view(plain):
+        with torch.no_grad():
+            if plain:
+                P.project_plain(*args, P.camera_vector(sc["cam"], static), static,
+                                3, False)
+            else:
+                P.project_gaussians(*args, sc["cam"], static, 3)
+
+    launches = {"kernel_view": count_launches(lambda: view(False)),
+                "kernel_step": count_launches(lambda: step(False)),
+                "plain_view": count_launches(lambda: view(True)),
+                "plain_step": count_launches(lambda: step(True))}
+    # bytes: the forward reads xyz, scales, quats, opacity and the active
+    # SH (236 B a slot at SH 3) and writes 10 floats and 3 int32; the
+    # backward reads the inputs and 10 gradients, and writes every input's
+    # gradient (the SH rows whole)
+    read = 4 * (3 + 3 + 4 + 1 + 3 * 16)
+    fwd_bytes = n * (read + 4 * (10 + 3))
+    bwd_bytes = n * (read + 4 * 10 + 4 * (3 + 3 + 4 + 1 + 3 * k))
+    info = {w: P.kernel_info(w, 3, k) for w in ("fwd", "bwd")}
+    entries = []
+    for name, ms, plain_ms, nbytes in (
+            ("project_fwd", fwd_ms, plain_fwd_ms, fwd_bytes),
+            ("project_bwd", bwd_ms, plain_bwd_ms, bwd_bytes)):
+        bound_ms = nbytes / 3.35e12 * 1e3
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "bags_tpu_torch/csrc/projection.cu",
+            "replaces": "none (XLA's fusion of bags_tpu/core/projection.py)",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes, "roofline": bound_ms / ms,
+            "launches_cells_shape": launches, "card": smi,
+            **info[name[-3:]]})
+        print(f"{name} at the cells' shape: {ms:.4f} ms against a {bound_ms:.4f} ms "
+              f"byte bound ({100 * bound_ms / ms:.1f} %), plain {plain_ms:.3f} ms, "
+              f"resources {info[name[-3:]]}")
+    print(f"projection launches at the cells' shape {json.dumps(launches)}")
+    return out, entries
+
+
 def pose_recovery(device):
     """The verify recipe on the card: 80 Adam steps (lr 3e-3) of dq / dt
     recover the pose, loss < 0.02 (step 4). Returns the backward launches."""
@@ -776,6 +1005,7 @@ def render_path(model, data, scene, device):
     line and view 0's compositing inputs."""
     import torch
     from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.core import projection
     from bags_tpu_torch.model.gaussians import load_ply
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.raster.render import RenderConfig, render
@@ -789,11 +1019,16 @@ def render_path(model, data, scene, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     composite.fwd_launches = composite.bwd_launches = 0
+    projection.project_fwd_launches = projection.project_bwd_launches = 0
     t0 = time.perf_counter()
     summary = render_cli.main(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     cli_launches, cli_bwd = composite.fwd_launches, composite.bwd_launches
+    proj_launches = projection.project_fwd_launches
+    check(proj_launches == cli_launches and projection.project_bwd_launches == 0,
+          f"render CLI: {proj_launches} projection launches "
+          f"({projection.project_bwd_launches} backward) for {cli_launches} views")
     psnrs = [v for s in summary.values() for v in s["psnr"]]
     print(f"render CLI: {len(psnrs)} views in {cli_s:.2f} s, kernel launches "
           f"{cli_launches} (backward {cli_bwd}), peak memory "
@@ -871,7 +1106,7 @@ def render_path(model, data, scene, device):
             "launches": None, "launches_by_path": {"render_cli": cli_launches},
             "max_abs_err": err, "max_abs_diff": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None}, proj_launches
 
 
 def ablation_full_width(view0, fwd_entry):
@@ -1065,11 +1300,13 @@ def tools_path(device):
 
 def train_path(data):
     """This slice's main path: the train CLI at full width (step 6).
-    Returns (model path, forward launches, backward launches)."""
+    Returns (model path, forward launches, backward launches, the
+    projection's forward and backward launches)."""
     import math
 
     import torch
     from bags_tpu_torch.cli import train as train_cli
+    from bags_tpu_torch.core import projection
     from bags_tpu_torch.raster import composite
 
     model = os.path.join(WORK, "train_model")
@@ -1089,11 +1326,15 @@ def train_path(data):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     composite.fwd_launches = composite.bwd_launches = 0
+    projection.project_fwd_launches = projection.project_bwd_launches = 0
     t0 = time.perf_counter()
     summary = train_cli.main(argv)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     fwd, bwd = composite.fwd_launches, composite.bwd_launches
+    proj = (projection.project_fwd_launches, projection.project_bwd_launches)
+    check(proj == (fwd, bwd), f"train CLI: projection launches {proj}, "
+          f"compositing launches {(fwd, bwd)}")
     losses, steps = summary["losses"], summary["step_s"]
     print(f"train CLI: {len(losses)} steps in {train_s:.1f} s, forward launches "
           f"{fwd} ({summary['eval_renders']} of them evaluation renders), "
@@ -1119,7 +1360,7 @@ def train_path(data):
     check(os.path.exists(os.path.join(model, f"chkpnt{TRAIN_ITERS}.npz")),
           "no checkpoint written")
     check(summary["eval"], "no evaluation lines")
-    return model, fwd, bwd
+    return model, fwd, bwd, proj
 
 
 def restore_path(model, data):
@@ -2998,6 +3239,7 @@ def main():
         sys.exit("chip_smoke: bags_tpu_torch/ not found beside chip_smoke.py")
     sys.path.insert(0, REPO)
     from bags_tpu_torch.cli import render as render_cli
+    from bags_tpu_torch.core import projection
     from bags_tpu_torch.raster import composite
     from bags_tpu_torch.tools import kernablate as ka
     from bags_tpu_torch.tools import stagebench
@@ -3021,7 +3263,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)}")
     lap(1)
 
-    # 2. build the three kernel sources, in parallel
+    # 2. build the four kernel sources, in parallel
     t0 = time.perf_counter()
     sos = composite.build()
     for name, so in sos.items():
@@ -3033,6 +3275,10 @@ def main():
     print(f"build wall time {time.perf_counter() - t0:.2f} s")
     for name in ("composite_fwd", "composite_bwd"):
         print(f"{name} resources: {composite.kernel_info(name)}")
+    for which in ("fwd", "bwd"):
+        for deg in range(5):
+            print(f"project_{which} SH {deg} resources: "
+                  f"{projection.kernel_info(which, deg, 25 if deg == 4 else 16)}")
     for name in ka.MODES + ka.VARIANTS:
         print(f"kernablate {name} resources: {ka.kernel_info(name)}")
     lap(2)
@@ -3040,6 +3286,12 @@ def main():
     # 3. the kernels against their plain versions at test sizes
     test_size_checks(device)
     variants_test = ablation_test_size(device)
+    # 3b. the projection kernels against the plain path, then at the cells'
+    # shape alone
+    proj_cases = projection_test_size(device)
+    proj_full, proj_entries = projection_full_size(device, smi)
+    for case in proj_cases + [proj_full]:
+        check_projection_case(case)
     lap(3)
     # 4. camera gradients on the card, pose recovery
     camera_grad_check(device)
@@ -3052,14 +3304,17 @@ def main():
     model, data, scene = write_dataset(device)
     print(f"wrote {N_GAUSS}-Gaussian PLY and {N_CAMS}-camera dataset at "
           f"{WIDTH}x{HEIGHT} in {time.perf_counter() - t0:.1f} s")
-    view0, fwd_entry = render_path(model, data, scene, device)
+    view0, fwd_entry, proj_render = render_path(model, data, scene, device)
     del scene
     ablate_entry, fori_entry = ablation_full_width(view0, fwd_entry)
     del view0
     lap(5)
 
     # 6. the training path at full width
-    train_model, train_fwd, train_bwd = train_path(data)
+    train_model, train_fwd, train_bwd, proj_train = train_path(data)
+    proj_entries[0]["launches_by_path"] = {"render_cli": proj_render,
+                                           "train_cli": proj_train[0]}
+    proj_entries[1]["launches_by_path"] = {"train_cli": proj_train[1]}
     fwd_entry["launches"] = train_fwd
     fwd_entry["launches_by_path"]["train_cli"] = train_fwd
     lap(6)
@@ -3236,7 +3491,8 @@ def main():
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("step seconds " + json.dumps(step_s))
     shutil.rmtree(WORK, ignore_errors=True)
-    print(json.dumps({"kernels": [fwd_entry, bwd_entry, ablate_entry, fori_entry]}))
+    print(json.dumps({"kernels": [fwd_entry, bwd_entry, ablate_entry, fori_entry,
+                                  *proj_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -603,3 +603,133 @@ def test_graphed_prefit_matches_eager(cuda):
         largest = max(float(a.abs().max()) for a in nets[0].parameters())
     assert abs(loss[1] - loss[0]) <= 1e-5 * abs(loss[0])
     assert diff <= 1e-4 * largest
+
+
+# The projection kernels (csrc/projection.cu) against the plain path on the
+# card: (SH degree, coefficients a row, pupil shift, global alignment).
+PROJ_CASES = {"sh0": (0, 1, False, False), "sh1_shift": (1, 16, True, False),
+              "sh2_align": (2, 9, False, True), "sh3_K16_shift_align": (3, 16, True, True),
+              "sh3_K25": (3, 25, False, False), "sh4_shift_align": (4, 25, True, True)}
+# Float outputs: the kernel rounds each operation as the plain path's
+# separate kernels do (an H100 reads them bit for bit equal; the tolerance
+# leaves an ulp for logf). Gradients: the backward kernel's hand-derived
+# sums round in another order than autograd's chain, and the camera's are
+# sums over every slot (the near-plane slots' terms reach 1e16): normwise
+# relative differences read at most 4.5e-7 against float64 on an H100.
+PROJ_FWD_RTOL = 1e-6
+PROJ_GRAD_REL = 1e-4
+
+
+def _proj_case(name, device):
+    """A projection_scene of 2,000 slots (the special ones included, half
+    the rest dead) with leaves for every input and camera parameter the
+    case has."""
+    from bags_tpu_torch.core.camera import GlobalAlignment
+    from bags_tpu_torch.utils.testing import projection_scene
+
+    deg, k, shift, align = PROJ_CASES[name]
+    sc = projection_scene(2000, k, seed=sorted(PROJ_CASES).index(name),
+                          live_every=2, device=device)
+    leaves = {a: sc[a].clone() for a in ARGS}
+    leaves.update(dq=torch.tensor([0.01, 0.02, -0.01, 0.03], device=device),
+                  dt=torch.tensor([0.05, -0.1, 0.2], device=device),
+                  fovx=sc["cam"].fovx.clone(), fovy=sc["cam"].fovy.clone())
+    if shift:
+        leaves["shift"] = torch.tensor([0.03, -0.02, 0.05], device=device)
+    if align:
+        leaves["align_q"] = torch.tensor([0.998, 0.03, -0.04, 0.02], device=device)
+        leaves["align_s"] = torch.tensor(0.05, device=device)
+    for v in leaves.values():
+        v.requires_grad_(True)
+    cam = dataclasses.replace(sc["cam"], dq=leaves["dq"], dt=leaves["dt"],
+                              fovx=leaves["fovx"], fovy=leaves["fovy"])
+    kw = dict(shift_factors=leaves.get("shift"), align=(
+        GlobalAlignment(leaves["align_q"], leaves["align_s"]) if align else None))
+    return deg, leaves, cam, sc["static"], kw
+
+
+def _proj_run(name, device, plain):
+    """Outputs and every leaf's gradient of sum(g * out) over the 10 float
+    outputs, seeded cotangents, through the kernels or the plain path."""
+    from bags_tpu_torch.core import projection as P
+
+    deg, leaves, cam, static, kw = _proj_case(name, device)
+    args = [leaves[a] for a in ARGS]
+    if plain:
+        cv = P.camera_vector(cam, static, kw["align"], kw["shift_factors"])
+        proj = P.project_plain(*args, cv, static, deg, kw["shift_factors"] is not None)
+    else:
+        proj = P.project_gaussians(*args, cam, static, deg, **kw)
+    gen = torch.Generator(device=device).manual_seed(3)
+    loss = sum((getattr(proj, f) * torch.randn(args[0].shape[0], generator=gen,
+                                               device=device)).sum()
+               for f in P.FLOAT_FIELDS)
+    return proj, dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+@pytest.mark.parametrize("name", sorted(PROJ_CASES))
+def test_projection_kernels_match_plain(cuda, name):
+    """The forward kernel's outputs against `project_plain` on the card
+    (radius, rect_rx, rect_ry equal; floats within PROJ_FWD_RTOL of
+    max(1, |plain|)) and every gradient, the camera's dq, dt, fovx, fovy,
+    alignment and shift among them, within PROJ_GRAD_REL normwise of the
+    plain path's autograd; one forward and one backward launch."""
+    from bags_tpu_torch.core import projection as P
+
+    fwd, bwd = P.project_fwd_launches, P.project_bwd_launches
+    kern, kgrads = _proj_run(name, cuda, plain=False)
+    assert (P.project_fwd_launches, P.project_bwd_launches) == (fwd + 1, bwd + 1)
+    plain, pgrads = _proj_run(name, cuda, plain=True)
+    assert int((plain.radius > 0).sum()) > 500
+    for f in P.INT_FIELDS:
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    for f in P.FLOAT_FIELDS:
+        a, b = getattr(kern, f).detach(), getattr(plain, f).detach()
+        off = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+        assert off <= PROJ_FWD_RTOL, (f, off)
+    for k, b in pgrads.items():
+        a = kgrads[k]
+        rel = float(torch.linalg.norm((a - b).double()) /
+                    torch.linalg.norm(b.double()).clamp_min(1e-30))
+        assert rel <= PROJ_GRAD_REL, (k, rel)
+    # coefficients above the active degree get zero
+    deg = PROJ_CASES[name][0]
+    assert bool((kgrads["sh_coeffs"][:, (deg + 1) ** 2:] == 0).all())
+
+
+def test_projection_camera_grads_repeat(cuda):
+    """Two backward passes give the camera gradients bit for bit: the
+    kernel sums the camera terms in a fixed order, without atomics."""
+    first = _proj_run("sh3_K16_shift_align", cuda, plain=False)[1]
+    second = _proj_run("sh3_K16_shift_align", cuda, plain=False)[1]
+    for k in first:
+        assert torch.equal(first[k], second[k]), k
+
+
+def test_projection_launches_a_view_and_a_step(cuda):
+    """render() launches the forward kernel once a view; the step's backward
+    launches the backward kernel once."""
+    from bags_tpu_torch.core import projection as P
+
+    sc = _scene("toy_sh3", cuda)
+    leaves = [sc[k].clone().requires_grad_(True) for k in ARGS]
+    fwd, bwd = P.project_fwd_launches, P.project_bwd_launches
+    with torch.no_grad():
+        render(*leaves, sc["cam"], sc["static"], RenderConfig(sh_degree=3))
+    assert (P.project_fwd_launches, P.project_bwd_launches) == (fwd + 1, bwd)
+    out = render(*leaves, sc["cam"], sc["static"], RenderConfig(sh_degree=3))
+    out.render.mean().backward()
+    assert (P.project_fwd_launches, P.project_bwd_launches) == (fwd + 2, bwd + 1)
+
+
+def test_projection_wrapper_raises(cuda):
+    """On CUDA tensors the wrapper takes only what the kernels take: mixed
+    devices and non-contiguous inputs raise before a launch."""
+    sc = _scene("toy_sh3", cuda)
+    args = {k: sc[k] for k in ARGS}
+    for change, match in ((dict(sh_coeffs=sc["sh_coeffs"].cpu()), "sh_coeffs on cpu"),
+                          (dict(scales=sc["scales"].t().contiguous().t()),
+                           "contiguous")):
+        a = {**args, **change}
+        with pytest.raises(ValueError, match=match):
+            project_gaussians(*[a[k] for k in ARGS], sc["cam"], sc["static"], 3)
