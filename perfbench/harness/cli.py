@@ -18,7 +18,6 @@ or the JAX package is loaded once the window has closed.
 from __future__ import annotations
 
 import argparse
-import importlib
 import sys
 from typing import Optional
 
@@ -58,9 +57,8 @@ def main(argv=None, device: Optional[str] = None, root: Optional[str] = None,
                   f"found {n}", file=sys.stderr)
             return 2
         device = "cuda"
-    driver = importlib.import_module(f"harness.drivers.{cell.driver}")
-    run = driver.run(cell, args.seed, args.seconds, bool(args.trace),
-                     torch.device(device), age)
+    run = spec.driver_module(cell).run(cell, args.seed, args.seconds, bool(args.trace),
+                                       torch.device(device), age)
     bad = core.forbidden_modules()
     if bad:
         print(f"perfbench: loaded after the window: {', '.join(bad)}",

@@ -33,10 +33,13 @@ import torch
 
 from reference import render as ref_render
 
-from .. import core, scene as sc
+from .. import core, faults, scene as sc
 from ..trace import capture
 from ..work import view_work
 
+FAMILY = "render"
+CHECKS = ("views_compared", "view_max_abs", "view_share_off")
+PROGRAM_FAULTS = {"altered": ([("bags_tpu_torch.raster.render", "render")], faults.altered)}
 OFF = 2e-5          # a pixel value off by more than this counts in view_share_off
 WARMUP_VIEWS = 3
 KEPT_VIEWS = 6      # views of the window the reference renders again
@@ -131,7 +134,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, age) -> core.Run:
     checks = {"views_compared": (0.0 if kept else 1.0, 0.0),
               "view_max_abs": (max_abs, cell.limits["view_max_abs"]),
               "view_share_off": (share, cell.limits["view_share_off"])}
-    out = core.Run(driver="render",
+    out = core.Run(driver=FAMILY,
                    e2e={"render_ms_per_view": 1e3 * (t1 - t0) / i,
                         "render_ms_p95": 1e3 * _p95(lat), "setup_s": setup_s,
                         "peak_mem_gib": peak / 2 ** 30},
@@ -161,3 +164,38 @@ def work(cfg, scene, views, table) -> Dict[str, float]:
                      cfg["scene"]["sh_degree"]) for j in views]
     return {"view_least_s": statistics.mean(p["view"] for p in per),
             "fwd_least_s_traced": sum(p["fwd"] for p in per)}
+
+
+@torch.no_grad()
+def control_readings(cell, seed: int, device) -> list:
+    """The control's view_max_abs and view_share_off over the seed's
+    sampled views: the reference rendered in the configuration's control
+    precision against the reference in float32."""
+    cfg, traffic = cell.config, cell.traffic
+    s_scene, _, s_orbit, s_sample = sc.sub_seeds(seed)
+    scene = sc.make_scene(cfg, s_scene, device)
+    poses = sc.orbit_cameras(cfg, traffic, s_orbit)
+    table = sc.camera_table(poses, cfg["fov"], cfg["fov"], device)
+    sample = np.random.default_rng(s_sample).choice(
+        len(poses), size=KEPT_VIEWS, replace=False).tolist()
+    ctl = cfg["control"]
+    dt = faults.DTYPES[ctl["dtype"]]
+    fov = torch.tensor(cfg["fov"], device=device)
+    max_abs, share = 0.0, 0.0
+    saved = torch.backends.cuda.matmul.allow_tf32
+    for j in sample:
+        R, t = _pose(table, j)
+        truth = ref_render.render(scene.xyz, scene.scales, scene.quats, scene.opacity,
+                                  scene.sh, R, t, fov, fov, cfg["width"], cfg["height"])
+        torch.backends.cuda.matmul.allow_tf32 = ctl["tf32"]
+        try:
+            low = ref_render.render(*(x.to(dt) for x in (
+                scene.xyz, scene.scales, scene.quats, scene.opacity, scene.sh, R, t,
+                fov, fov)), cfg["width"], cfg["height"])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        d = (low.float() - truth).abs()
+        max_abs = max(max_abs, float(d.max()))
+        share = max(share, float((d > OFF).float().mean()))
+    return [{"workload": cell.name, "seed": seed, "reading": f"control_{ctl['dtype']}",
+             "view_max_abs": max_abs, "view_share_off": share}]

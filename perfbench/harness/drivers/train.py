@@ -4,29 +4,23 @@
 Set-up makes the scene, the cameras and the GT on the device from the
 seed (`scene.py`), builds the program's trainer from the configuration's
 train-CLI arguments over the training population in the configuration's
-capacity, sets the SH degree the traffic names, and drives the trainer's
-own `run` through its first CHECK_STEPS steps (the ones the reference
-follows; the camera of each is the first of the trainer's reshuffled
-stack) and WARMUP_STEPS more. The window then calls `run` in chunks of
-CHUNK iterations until `--seconds` have passed: `run` counts its
-iterations from 1 in each call, so no densify step (after iteration 500)
-and no opacity reset falls in the window, and a lens window the traffic
-closes stays closed. `train_ms_per_iter` is the window's wall time, which
-ends in a synchronise, over the steps completed in it.
-
-With `--trace 1` two profiled segments of TRACED_STEPS steps each
-follow the window: the first records the device alone, the second the
-host too, with the benchmark's spans "bench.lens" around the program's
-lens flow and warp. The work of every camera the window and the first
-segment used is counted on the reference's binning of the initial
-population.
+capacity and sets the SH degree the traffic names. `window.train_window`
+then drives the trainer's own `run` through the steps the reference
+follows (the camera of each is the first of the trainer's reshuffled
+stack) and the warm-up, the window and, with `--trace 1`, the two
+profiled segments, the second with the benchmark's spans "bench.lens"
+around the program's lens flow and warp; a lens window the traffic closes
+stays closed. `train_ms_per_iter` is the window's wall time, which ends
+in a synchronise, over the steps completed in it. The work of every
+camera the window and the first segment used is counted on the
+reference's binning of the initial population: one render a step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import statistics
-import time
 from typing import Dict, List
 
 import numpy as np
@@ -36,19 +30,24 @@ from reference import lens as ref_lens
 from reference import render as ref_render
 from reference.train import FisheyeGeometry, Hyper, train_steps
 
-from .. import core, scene as sc
-from ..trace import capture
+from .. import core, faults, scene as sc, window
+from ..window import CHECK_STEPS
 from ..work import step_work
 
+FAMILY = "train"
+CHECKS = ("loss_gap", "grad_gap", "change_gap", "camera_order", "config_departures")
+# cam_gap too where the configuration trains camera rows (`own_leaves`)
 LENS_SPAN = "bench.lens"
-CHECK_STEPS = 3      # the steps the reference follows; the limits are set at 3
-WARMUP_STEPS = 2
-CHUNK = 100          # under 500, where densify starts: no densify in the window
-TRACED_STEPS = 6
 
-
-class _WindowClosed(Exception):
-    pass
+PROGRAM_FAULTS = {
+    "unchanged": ([("bags_tpu_torch.train.loop", "train_step"),
+                   ("bags_tpu_torch.train.calibrated", "fisheye_train_step")],
+                  faults.unchanged),
+    "half": ([("bags_tpu_torch.train.loop", "photometric_loss"),
+              ("bags_tpu_torch.train.calibrated", "photometric_loss")], faults.half),
+    "cam_x2": ([("bags_tpu_torch.train.loop", "row_adam_update")], faults.cam_scaled(2.0)),
+    "cam_x0": ([("bags_tpu_torch.train.loop", "row_adam_update")], faults.cam_scaled(0.0)),
+}
 
 
 def _lens_window(cfg: dict, traffic: dict):
@@ -156,8 +155,8 @@ def _padded(live: Dict[str, torch.Tensor], capacity: int):
 
 def _program_phase(cell, seed, seconds, trace, device, inputs):
     """Everything the program does, from its trainer's construction to the
-    traced segment; returns host copies of what the comparison reads."""
-    from bags_tpu_torch.calib import distortion
+    traced segment (`window.train_window`); returns host copies of what
+    the comparison reads."""
     from bags_tpu_torch.core.camera import CameraParams, CameraStatic
     from bags_tpu_torch.raster.render import RenderConfig
     from bags_tpu_torch.train.calibrated import CalibTrainer
@@ -183,86 +182,35 @@ def _program_phase(cell, seed, seconds, trace, device, inputs):
                           rcfg=rcfg, seed=seed)
     del g, cams
     trainer.active_sh_degree = traffic["active_sh_degree"]
-    seq: List[int] = []
-    step = trainer.step
-
-    def recorded_step(idx, gt, it=None):
-        seq.append(int(idx))
-        return step(idx, gt, it)
-
-    trainer.step = recorded_step
     n = cfg["scene"]["n_gaussians"]
-    n_check = CHECK_STEPS
-    rec: Dict[str, object] = {"losses": []}
-
-    def check_cb(it, state, metrics):
-        rec["losses"].append(float(metrics.loss))
-        if it == 1:
-            rec["grads"] = _first_grads(trainer, n)
-        if it == n_check:
-            rec["after"] = _leaves(trainer, n)
-
-    t_built = inputs["age"]()
-    trainer.run(n_check, callback=check_cb)
-    t_checked = inputs["age"]()
-    trainer.run(WARMUP_STEPS)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    setup_s = inputs["age"]()
+    prog = window.train_window(trainer, seconds, trace, device, inputs["age"],
+                               grads=lambda t: _first_grads(t, n),
+                               leaves=lambda t: _leaves(t, n), host_spans=_lens_spans)
     notes.append(f"set-up: imports done at {inputs['start_s']:.2f} s, scene made at "
                  f"{inputs['scene_s']:.2f} s, GT made at {inputs['made_s']:.2f} s, "
-                 f"trainer built at {t_built:.2f} s, checked steps done at "
-                 f"{t_checked:.2f} s, warm at {setup_s:.2f} s")
+                 f"trainer built at {prog['built_s']:.2f} s, checked steps done at "
+                 f"{prog['checked_s']:.2f} s, warm at {prog['setup_s']:.2f} s")
+    lens_s = None
+    if trace and cfg["mode"] == "fisheye":
+        lens_s = prog["host_trace"].attributed_seconds(LENS_SPAN)
+    return dict(prog, lens_s=lens_s, notes=notes, departures=departed)
 
-    losses_w: List[torch.Tensor] = []
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.perf_counter()
-    deadline = t0 + seconds
 
-    def window_cb(it, state, metrics):
-        losses_w.append(metrics.loss)
-        if time.perf_counter() >= deadline:
-            raise _WindowClosed
+@contextlib.contextmanager
+def _lens_spans():
+    """The program's lens flow and warp inside "bench.lens" spans."""
+    from bags_tpu_torch.calib import distortion
 
-    start = len(seq)
-    while True:
-        try:
-            trainer.run(CHUNK, callback=window_cb)
-        except _WindowClosed:
-            break
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
-    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    window_cams = seq[start:]
-    steps = len(losses_w)
-    failed = int((~torch.isfinite(torch.stack(losses_w))).sum()) if steps else 0
-
-    tr, host_tr, lens_s, traced_cams = None, None, None, []
-    if trace:
-        t_start = len(seq)
-        tr = capture(lambda: trainer.run(TRACED_STEPS), host=False)
-        traced_cams = seq[t_start:]
-        patched = {}
-        for name in ("compute_flow", "apply_distortion"):
-            fn = getattr(distortion, name)
-            patched[name] = fn
-            setattr(distortion, name, _spanned(fn))
-        try:
-            host_tr = capture(lambda: trainer.run(TRACED_STEPS), host=True)
-        finally:
-            for name, fn in patched.items():
-                setattr(distortion, name, fn)
-        if cfg["mode"] == "fisheye":
-            lens_s = host_tr.attributed_seconds(LENS_SPAN)
-    trainer.close()
-    return dict(setup_s=setup_s, ms=1e3 * (t1 - t0) / max(steps, 1), steps=steps,
-                failed=failed, peak=peak, check_cams=seq[:n_check],
-                window_cams=window_cams, traced_cams=traced_cams, trace=tr,
-                host_trace=host_tr, lens_s=lens_s, notes=notes, departures=departed,
-                **rec)
+    patched = {}
+    for name in ("compute_flow", "apply_distortion"):
+        fn = getattr(distortion, name)
+        patched[name] = fn
+        setattr(distortion, name, _spanned(fn))
+    try:
+        yield
+    finally:
+        for name, fn in patched.items():
+            setattr(distortion, name, fn)
 
 
 def _spanned(fn):
@@ -385,7 +333,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, age) -> core.Run:
         f"losses program {prog['losses']} reference {ref['losses']}",
         f"{prog['steps']} steps in the window, cameras {prog['check_cams']} checked"]
 
-    out = core.Run(driver="train",
+    out = core.Run(driver=FAMILY,
                    e2e={"train_ms_per_iter": prog["ms"], "setup_s": prog["setup_s"],
                         "peak_mem_gib": prog["peak"] / 2 ** 30},
                    attempted=prog["steps"], failed=prog["failed"], checks=checks,
@@ -412,8 +360,39 @@ def work(cfg, live, inputs, hp, window_cams, traced_cams) -> Dict[str, float]:
         per_cam[c] = step_work(live, None, R, t, cams["fovx"][c], cams["fovy"][c],
                                cfg["width"], cfg["height"], hp.sh_degree,
                                lens_points=points, lens_trained=hp.opt_lens)
-    return {"step_least_s": statistics.mean(per_cam[c]["step"] for c in window_cams),
+    return {"renders_per_step": 1,
+            "step_least_s": statistics.mean(per_cam[c]["step"] for c in window_cams),
             "fwd_least_s_traced": sum(per_cam[c]["fwd"] for c in traced_cams),
             "bwd_least_s_traced": sum(per_cam[c]["bwd"] for c in traced_cams),
             "instances_mean": statistics.mean(per_cam[c]["instances"]
                                               for c in window_cams)}
+
+
+def control_readings(cell, seed: int, device) -> list:
+    """The control's and the "half" fault's loss_gap, grad_gap and
+    change_gap (and cam_gap where camera rows train), each planted in the
+    reference and read against the float32 reference at the cell's size;
+    a state left unchanged reads 1 on change_gap by the measure, with no
+    run."""
+    cfg, traffic = cell.config, cell.traffic
+    inputs = make_inputs(cfg, seed, device, lambda: 0.0)
+    live = inputs["live"]
+    order, hp, geometry = reference_setup(cfg, traffic, seed, inputs)
+    args = (live, inputs["cams"], inputs["gts"], order, hp,
+            torch.zeros(3, device=device), geometry)
+    truth = train_steps(*args)
+    init = initial_leaves(live, inputs["cams"], geometry)
+    ctl = cfg["control"]
+    runs = {f"control_{ctl['dtype']}{'_tf32' if ctl['tf32'] else ''}":
+            dict(dtype=faults.DTYPES[ctl["dtype"]], tf32=ctl["tf32"]),
+            "fault_half": dict(fault="half")}
+    out = []
+    for name, kw in runs.items():
+        r = train_steps(*args, **kw)
+        nums = core.training_numbers(r["losses"], truth["losses"], r["grads"],
+                                     truth["grads"], r["after"], truth["after"], init,
+                                     own_leaves(hp))
+        out.append({"workload": cell.name, "seed": seed, "reading": name, **nums})
+    out.append({"workload": cell.name, "seed": seed, "reading": "fault_unchanged",
+                "change_gap": 1.0})
+    return out

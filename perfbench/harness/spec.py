@@ -6,7 +6,28 @@ mix is `<bench>/traffic/<traffic>.json`, which names the driver that runs
 it (`harness/drivers/<driver>.py`); the cell's limits of correctness are
 `<bench>/limits/<workload>.json`; a per-layer metric's reader is
 `<bench>/metrics/<name>.py`. So a later change adds a configuration, a
-cell or a metric with new files and entries, and edits none.
+cell, a metric or a driver with new files and entries, and edits none.
+
+A driver module (`driver_module`) declares its contract; the harness,
+`controls.py` and the tests take everything about a driver from it:
+
+- `FAMILY`: "train" or "render", which the driver's `core.Run.driver`
+  carries, so that the per-layer readers of a family read a new driver
+  of it;
+- `CHECKS`: the names of the numbers behind `correct` that every limits
+  file of its cells holds;
+- `run(cell, seed, seconds, trace, device, age) -> core.Run`: one run;
+  a training driver builds its trainer and hands it to
+  `window.train_window`;
+- `control_readings(cell, seed, device) -> list`: the rows
+  `controls.py` prints for a cell, a dict a seed and reading (the
+  control; the faults the reference can plant in itself);
+- `PROGRAM_FAULTS`: fault name -> ([(program module, attribute)], wrap),
+  the program functions its step calls, for `faults.plant`.
+
+A training driver that makes several renders a step reports
+`renders_per_step` in its `Run.work`, and counts the kernels' least
+seconds over all of them.
 """
 
 from __future__ import annotations
@@ -89,3 +110,8 @@ def metric_reader(cell: Cell, name: str):
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
     return mod.read
+
+
+def driver_module(cell: Cell):
+    """The module `harness.drivers.<driver>` of the cell's traffic."""
+    return importlib.import_module(f"harness.drivers.{cell.driver}")

@@ -1,7 +1,9 @@
 """The backward compositing kernel's share of its roofline in the traced
 training steps: the frozen bound (`counts.bwd_bytes`, `counts.bwd_ops` on
-the reference binning of each step's camera) over the kernel's device
-time in those steps, in %."""
+the reference binning of each render of a step) over the kernel's device
+time in those steps, in %. A driver that makes several renders a step
+reports `renders_per_step` in its work: the trace then holds that many
+launches of the kernel a traced step, and the bound sums all of them."""
 
 KERNEL = "composite_bwd_kernel"
 
@@ -10,7 +12,8 @@ def read(run):
     if run.driver != "train" or run.trace is None:
         return None
     times = run.trace.kernels(KERNEL)
+    renders = run.work.get("renders_per_step", 1)
     least = run.work.get("bwd_least_s_traced")
-    if len(times) != run.traced_steps or not least or sum(times) <= 0:
+    if len(times) != renders * run.traced_steps or not least or sum(times) <= 0:
         return None
     return 100.0 * least / sum(times)

@@ -22,8 +22,7 @@ def _fails(row: dict, limits: dict) -> bool:
 
 def _readings(root, workload, device):
     cell = spec.load_cell(workload, root)
-    rows = (controls.render_readings(cell, 2147483907, device) if cell.driver == "render"
-            else controls.train_readings(cell, 2147483907, device))
+    rows = spec.driver_module(cell).control_readings(cell, 2147483907, device)
     return cell, rows
 
 

@@ -25,14 +25,7 @@ def test_every_cell_resolves(workload):
     cell = spec.load_cell(workload, toy.REPO)
     assert os.path.exists(os.path.join(toy.BENCH, "harness", "drivers",
                                        cell.driver + ".py"))
-    assert {m.name for m in cell.end_to_end} >= {"setup_s", "peak_mem_gib"}
-    assert len(cell.end_to_end) >= 2 and cell.per_layer
-    for m in cell.per_layer:
-        assert callable(spec.metric_reader(cell, m.name))
-    names = {"train": {"loss_gap", "grad_gap", "change_gap"},
-             "render": {"view_max_abs", "view_share_off"}}[cell.driver]
-    assert names <= set(cell.limits)
-    assert cell.chips == 1
+    toy.assert_resolves(cell)
 
 
 def test_contract_shapes():

@@ -1,7 +1,10 @@
 """A toy copy of the benchmark for CPU tests: the repository's
 `BENCHMARK.json` and data files under a temporary root, each
 configuration cut to 64x48 views of 2,000 Gaussians in 4,096 slots and 4
-cameras, the orbit to 8 views. The harness's code is the repository's.
+cameras, the orbit to 8 views. A configuration that gives sizes in pixels
+lists their key paths under `pixel_keys` ("focal", "cubemap.mask_radius"),
+and the cut scales each with the width. The harness's code is the
+repository's.
 """
 
 from __future__ import annotations
@@ -20,8 +23,20 @@ if REPO not in sys.path:
     sys.path.append(REPO)
 
 
+def _scaled(value, factor):
+    if isinstance(value, list):
+        return [_scaled(v, factor) for v in value]
+    return value * factor
+
+
 def toy_config(cfg: dict, width: int = 64, height: int = 48, n: int = 2000) -> dict:
     cfg = json.loads(json.dumps(cfg))
+    for path in cfg.get("pixel_keys", []):
+        *groups, key = path.split(".")
+        node = cfg
+        for g in groups:
+            node = node[g]
+        node[key] = _scaled(node[key], width / cfg["width"])
     cfg["width"], cfg["height"] = width, height
     cfg["scene"]["n_gaussians"] = n
     cfg["scene"]["scale_range"] = [0.03 * 64 / width, 0.12 * 64 / width]
@@ -51,6 +66,25 @@ def make_root(root: str, **size) -> str:
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(spec, f)
     return root
+
+
+def assert_resolves(cell) -> None:
+    """A cell's driver declares its contract (`harness/spec.py`), its
+    limits cover every number in the module's `CHECKS`, and each of its
+    metrics has a reader."""
+    from harness import spec
+
+    drv = spec.driver_module(cell)
+    assert drv.FAMILY in ("train", "render")
+    assert callable(drv.run) and callable(drv.control_readings)
+    assert set(drv.CHECKS) <= set(cell.limits)
+    for targets, wrap in drv.PROGRAM_FAULTS.values():
+        assert targets and callable(wrap)
+    assert {m.name for m in cell.end_to_end} >= {"setup_s", "peak_mem_gib"}
+    assert len(cell.end_to_end) >= 2 and cell.per_layer
+    for m in cell.per_layer:
+        assert callable(spec.metric_reader(cell, m.name))
+    assert cell.chips == 1
 
 
 def run_cell(root: str, workload: str, seed: int = 2147483905, seconds: float = 1.0,
