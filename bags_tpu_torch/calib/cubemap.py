@@ -12,8 +12,15 @@ a circular-masked wide-field GT.
 
 The banded warp of the JAX package (`warp_to_face`'s `warp_ky` and
 `transposed`) is a TPU workaround and is not ported: every warp is the
-gather `grid_sample`, whose non-finite sample positions (a ray with x or y
-exactly 0 on a side face) give the JAX package's NaN.
+gather `F.grid_sample`. A ray with x or y exactly 0 is parallel to a side
+face's plane and has no finite position on it: it reads zero and passes
+no gradient to the render, as the published code's `F.grid_sample` reads
+a position at infinity, where the JAX package's gather returns NaN and
+the step's loss and every gradient with it. The division's own
+derivative there is not finite, so such a step hands the cubemap net a
+non-finite gradient, which its NaN guard drops (`train/calibrated.py`).
+At a 190-degree field the net's residual moves the rays' zero crossings
+through the image, and a ray lands exactly on 0 every few hundred steps.
 """
 
 from __future__ import annotations
@@ -23,8 +30,9 @@ from typing import Callable, List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ..utils.image import grid_sample, resize_bilinear
+from ..utils.image import resize_bilinear
 from ..utils.spans import span
 from .iresnet import IResNetParams, iresnet_forward
 
@@ -88,10 +96,14 @@ def face_grid(K, rays_hom: torch.Tensor, face: str, height: int, width: int,
 
 def warp_to_face(K, rays_hom: torch.Tensor, img: torch.Tensor, face: str,
                  height: int, width: int) -> torch.Tensor:
-    """Grid-sample the face render img (C, h, w) at the reprojected rays:
-    (C, height, width)."""
-    return grid_sample(img, face_grid(K, rays_hom, face, height, width,
-                                      img.shape[-2:]))
+    """Sample the face render img (C, h, w) bilinearly at the reprojected
+    rays (align_corners, zeros outside): (C, height, width). A position
+    that is not finite reads zero with no gradient (module doc)."""
+    grid = face_grid(K, rays_hom, face, height, width, img.shape[-2:])
+    off = ~torch.isfinite(grid.detach()).all(dim=-1, keepdim=True)
+    return F.grid_sample(img[None], grid.masked_fill(off, -1e4)[None],
+                         mode="bilinear", padding_mode="zeros",
+                         align_corners=True)[0]
 
 
 def mask_half(image: torch.Tensor, direction: str) -> torch.Tensor:
@@ -168,19 +180,24 @@ def render_cubemap_faces(render_face: Callable[[int], torch.Tensor],
                          cubemap_net: IResNetParams, K, width: int,
                          height: int, control_point_sample_scale: int,
                          mask_fov90: torch.Tensor):
-    """Warp the five faces, under the span "lens". render_face(i) returns
-    the (3, H, W) render of face i in FACES order (0 the main camera, 1-4
-    the sub-cameras). Returns (faces, 0): the warped images, the side faces
-    half-masked, and the JAX package's banded-warp overflow, always 0
-    here."""
+    """Warp the five faces, under the span "lens": the ray field under
+    "cubemap_rays", each face's mask, reprojection and gather under
+    "face_warp". render_face(i) returns the (3, H, W) render of face i in
+    FACES order (0 the main camera, 1-4 the sub-cameras). Returns (faces,
+    0): the warped images, the side faces half-masked, and the JAX
+    package's banded-warp overflow, always 0 here."""
     with span("lens"):
-        rays_hom = distorted_rays(cubemap_net, K, width, height,
-                                  control_point_sample_scale)
+        with span("cubemap_rays"):
+            rays_hom = distorted_rays(cubemap_net, K, width, height,
+                                      control_point_sample_scale)
         out: List[torch.Tensor] = []
         for i, face in enumerate(FACES):
-            warped = warp_to_face(K, rays_hom, render_face(i) * mask_fov90,
-                                  face, height, width)
-            out.append(warped if face == "forward" else mask_half(warped, face))
+            img = render_face(i)
+            with span("face_warp"):
+                warped = warp_to_face(K, rays_hom, img * mask_fov90, face,
+                                      height, width)
+                out.append(warped if face == "forward"
+                           else mask_half(warped, face))
     return out, 0
 
 

@@ -550,7 +550,9 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
     moments still step). A hybrid state adds the specular colour seen from
     the camera to all five renders (the faces share its centre) and steps
     its MLP. The ray field and warps run under the span "lens"
-    (`render_cubemap_faces`), the masked losses under "loss"."""
+    (`render_cubemap_faces`), the masked losses under "loss". The metrics
+    carry each face's binned instance count (`face_instances`), which
+    binning holds on the host."""
     b = state.base
     g = b.g
     rcfg = dataclasses.replace(rcfg, sort_by_distance=True)
@@ -585,9 +587,10 @@ def cubemap_train_step(state: CalibState, gt: torch.Tensor, cam_idx: int,
         grads = cubemap_optimizers(state, cfg, view, cam_idx, schedules,
                                    main.radii)
     return StepMetrics(loss=loss.detach(), l1=loss.detach(),
-                            n_alive=b.alive.sum(),
-                            n_dropped=sum(o.n_dropped for o in outs),
-                            image=faces[0].detach(), grads=grads)
+                       n_alive=b.alive.sum(),
+                       n_dropped=sum(o.n_dropped for o in outs),
+                       image=faces[0].detach(), grads=grads,
+                       face_instances=[o.gauss_id.shape[0] for o in outs])
 
 
 # ---------------------------------------------------------------------------

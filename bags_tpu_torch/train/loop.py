@@ -88,6 +88,8 @@ class StepMetrics:
     n_dropped: int
     image: torch.Tensor               # the image the loss compared
     grads: Dict[str, torch.Tensor]    # every gradient the step took
+    # a cubemap step's binned instances, one count a face (FACES order)
+    face_instances: Optional[List[int]] = None
 
 
 def init_train_state(g: Gaussians, alive: torch.Tensor, cams: CameraParams,

@@ -2,7 +2,9 @@
 they are one shared no-op; under `torch.profiler` a training step opens
 every layer's span inside "bags.step", no two layer spans overlapping; a
 listener sees a view's spans in order, and the stage split times a step by
-them; and the profiler changes no number of a step."""
+them; and the profiler changes no number of a step. A cubemap step opens
+its ray field's and each face's warp span inside "lens" and counts each
+face's binned instances."""
 
 import contextlib
 import json
@@ -12,11 +14,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from bags_tpu_torch.core.camera import CameraStatic
+from bags_tpu_torch.raster import binning
 from bags_tpu_torch.raster.render import RenderConfig, render
 from bags_tpu_torch.tools import stagebench
 from bags_tpu_torch.train import calibrated, loop
 from bags_tpu_torch.utils import spans
-from bags_tpu_torch.utils.testing import make_toy_scene, pose_toy
+from bags_tpu_torch.utils.testing import cubemap_toy, make_toy_scene, pose_toy
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RENDER_SPANS = ("projection", "binning", "gather", "composite")
@@ -124,3 +127,35 @@ def test_stage_split_times_the_real_step():
     assert set(stagebench.STEP_STAGES) <= set(stages) <= \
         set(stagebench.STEP_STAGES) | {"render", "other"}
     assert all(v >= 0 for v in stages.values())
+
+
+def test_cubemap_step_spans_and_face_counts(monkeypatch):
+    """Under a listener a toy cubemap step opens "cubemap_rays" once and
+    "face_warp" five times, each inside "lens" and nowhere else; off, both
+    are the shared no-op. The step's metrics carry the five faces' binned
+    instance counts, binning's own `n_instances` in FACES order."""
+    assert spans.span("cubemap_rays") is spans.span("face_warp") is spans.span("lens")
+    toy = cubemap_toy("cpu")
+    binned = []
+    real = binning.bin_gaussians
+
+    def counted(*a, **k):
+        bins = real(*a, **k)
+        binned.append(bins.n_instances)
+        return bins
+
+    monkeypatch.setattr(binning, "bin_gaussians", counted)
+    seen = []
+    with spans.listening(lambda name, event: seen.append((name, event))):
+        m = calibrated.cubemap_train_step(
+            toy["state"], toy["gt"], 0, torch.zeros(3), toy["sub_q"][0],
+            toy["sub_t"][0], toy["setup"], RenderConfig(sh_degree=1), toy["cfg"],
+            toy["schedules"])
+    lens = [i for i, (name, _) in enumerate(seen) if name == "lens"]
+    assert len(lens) == 2
+    inside = seen[lens[0] + 1:lens[1]]
+    assert inside == [("cubemap_rays", "enter"), ("cubemap_rays", "exit")] + \
+        [("face_warp", "enter"), ("face_warp", "exit")] * 5
+    assert sum(name in ("cubemap_rays", "face_warp") for name, _ in seen) == 12
+    assert len(binned) == 5 and min(binned) > 0
+    assert m.face_instances == binned
